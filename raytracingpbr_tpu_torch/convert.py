@@ -1,0 +1,97 @@
+"""Carry the JAX package's state across to the port, and back to numpy.
+
+The JAX objects are read by attribute and ``np.asarray``-ed, so this module
+needs no jax import: it works on any object with the JAX package's field
+names. Static metadata (shape types, buckets, ``rot_perm``) is copied as it
+is, and tensors keep their exact values.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+import torch
+
+from . import config as cfglib
+from .core.types import Camera, FrameState, Rays
+from .ops.ibl import Environment
+from .ops.scene import _BUFFERS, Scene
+
+
+def _t(x, device=None, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+
+def _opt(x, device):
+    return None if x is None else _t(x, device)
+
+
+def config_from_jax(cfg) -> cfglib.RenderConfig:
+    """A JAX ``RenderConfig`` -> the port's, field by field (enums by
+    value)."""
+    kw = {}
+    for f in dataclasses.fields(cfglib.RenderConfig):
+        v = getattr(cfg, f.name)
+        if isinstance(f.default, enum.Enum):
+            v = type(f.default)(v.value)
+        kw[f.name] = v
+    return cfglib.RenderConfig(**kw)
+
+
+def scene_from_jax(scene, device=None) -> Scene:
+    if getattr(scene, "bunny", None) is not None:
+        raise NotImplementedError("the neural-bunny SDF is not ported yet")
+    return Scene(scene.shape_types, scene.type_splits, scene.bucket_types,
+                 scene.box_round, scene.rot_perm,
+                 **{k: _t(getattr(scene, k), device) for k in _BUFFERS})
+
+
+def camera_from_jax(cam, device=None) -> Camera:
+    return Camera(*(_t(getattr(cam, f.name), device)
+                    for f in dataclasses.fields(Camera)))
+
+
+def environment_from_jax(env, device=None) -> Environment:
+    return Environment(kind=str(env.kind), bilinear=bool(env.bilinear),
+                       image=_opt(env.image, device),
+                       scale=_t(env.scale, device),
+                       color_a=_opt(env.color_a, device),
+                       color_b=_opt(env.color_b, device))
+
+
+def rays_from_jax(rays, device=None) -> Rays:
+    return Rays(_t(rays.origin, device), _t(rays.direction, device),
+                _t(rays.color, device), _t(rays.depth, device, torch.int32))
+
+
+def frame_state_from_jax(state, device=None) -> FrameState:
+    """A JAX ``FrameState`` -> the port's. ``frame`` and the uint32
+    ``respawn`` counter become int64."""
+    return FrameState(
+        rays=rays_from_jax(state.rays, device),
+        accum=_t(state.accum, device),
+        frame=_t(state.frame, device, torch.int64),
+        diff_accum=_t(state.diff_accum, device),
+        noise=_t(state.noise, device),
+        pixels=_t(state.pixels, device),
+        respawn=_t(np.asarray(state.respawn).astype(np.int64), device),
+        hit_t=_t(state.hit_t, device),
+        sky_w=_t(state.sky_w, device),
+        march_state=_t(state.march_state, device),
+        march_cum=_t(state.march_cum, device, torch.int32),
+    )
+
+
+def frame_state_to_numpy(state: FrameState) -> dict:
+    """The port's state as a flat dict of numpy arrays in the JAX package's
+    dtypes (``rays.*`` keys for the rays; ``frame`` int32, ``respawn``
+    uint32)."""
+    out = {f"rays.{f.name}": getattr(state.rays, f.name).cpu().numpy()
+           for f in dataclasses.fields(Rays)}
+    for f in dataclasses.fields(FrameState):
+        if f.name != "rays":
+            out[f.name] = getattr(state, f.name).cpu().numpy()
+    out["frame"] = out["frame"].astype(np.int32)
+    out["respawn"] = out["respawn"].astype(np.uint32)
+    return out

@@ -36,6 +36,8 @@ jax.config.update("jax_enable_x64", False)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: requires real TPU hardware (run with RT_TPU=1)")
+    config.addinivalue_line(
+        "markers", "cuda: requires a CUDA device (skipped where there is none)")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,0 +1,51 @@
+"""Port config parity: the PyTorch port mirrors the JAX ``RenderConfig``
+and its enums field for field."""
+import dataclasses
+
+import pytest
+
+from raytracingpbr_tpu import config as jcfg
+from raytracingpbr_tpu.models import cornell as jcornell
+from raytracingpbr_tpu_torch import config as tcfg
+from raytracingpbr_tpu_torch.convert import config_from_jax
+from raytracingpbr_tpu_torch.models import cornell as tcornell
+
+from . import torch_helpers  # noqa: F401  (caps torch threads)
+
+
+def _as_plain(cfg):
+    """Field dict with enums as their values (comparable across
+    packages)."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        out[f.name] = v.value if hasattr(v, "value") else v
+    return out
+
+
+def test_fields_and_defaults_match():
+    j = [(f.name, f.default) for f in dataclasses.fields(jcfg.RenderConfig)]
+    t = [(f.name, f.default) for f in dataclasses.fields(tcfg.RenderConfig)]
+    assert [n for n, _ in t] == [n for n, _ in j]
+    assert _as_plain(tcfg.RenderConfig()) == _as_plain(jcfg.RenderConfig())
+
+
+@pytest.mark.parametrize("name", ["Tonemap", "OmegaPolicy", "HitCriterion",
+                                  "Roulette"])
+def test_enum_values_match(name):
+    j = {e.name: e.value for e in getattr(jcfg, name)}
+    t = {e.name: e.value for e in getattr(tcfg, name)}
+    assert t == j
+
+
+@pytest.mark.parametrize("maker", ["full_config", "minimal_config",
+                                   "v2_config", "v3_config"])
+def test_cornell_configs_and_properties_match(maker):
+    j = getattr(jcornell, maker)().replace(resolution=(64, 48))
+    t = getattr(tcornell, maker)().replace(resolution=(64, 48))
+    assert _as_plain(t) == _as_plain(j)
+    for prop in ("width", "height", "num_pixels", "screen_pixel_size",
+                 "pixel_radius", "min_dis"):
+        assert getattr(t, prop) == getattr(j, prop)
+    # the converter carries a JAX config across unchanged
+    assert config_from_jax(j) == t
