@@ -17,6 +17,7 @@ from . import config as cfglib
 from .core.types import Camera, FrameState, Rays
 from .ops.ibl import Environment
 from .ops.scene import _BUFFERS, Scene
+from .ops.sdf import BunnyMLP
 
 
 def _t(x, device=None, dtype=None) -> torch.Tensor:
@@ -40,10 +41,11 @@ def config_from_jax(cfg) -> cfglib.RenderConfig:
 
 
 def scene_from_jax(scene, device=None) -> Scene:
-    if getattr(scene, "bunny", None) is not None:
-        raise NotImplementedError("the neural-bunny SDF is not ported yet")
+    jb = getattr(scene, "bunny", None)
+    bunny = None if jb is None else BunnyMLP(
+        *(_t(getattr(jb, k), device) for k in BunnyMLP._fields))
     return Scene(scene.shape_types, scene.type_splits, scene.bucket_types,
-                 scene.box_round, scene.rot_perm,
+                 scene.box_round, scene.rot_perm, bunny=bunny,
                  **{k: _t(getattr(scene, k), device) for k in _BUFFERS})
 
 

@@ -64,6 +64,13 @@ def rotate_euler(angles: torch.Tensor) -> torch.Tensor:
     return rz @ ry @ rx
 
 
+def sample_spherical_map(v: torch.Tensor) -> torch.Tensor:
+    """Direction -> equirectangular uv in [0, 1]^2."""
+    u = torch.atan2(v[..., 2], v[..., 0]) * (0.5 / math.pi) + 0.5
+    w = torch.asin(torch.clamp(v[..., 1], -1.0, 1.0)) * (1.0 / math.pi) + 0.5
+    return torch.stack([u, w], dim=-1)
+
+
 def radians(deg):
     return deg * (math.pi / 180.0)
 

@@ -1,28 +1,37 @@
-"""Hand-written CUDA march kernel K1a (``csrc/march.cu``) and its wrapper.
+"""Hand-written CUDA march kernels K1a, K1b and K1c (``csrc/march.cu``)
+and their wrapper.
 
-Replaces the Pallas TPU kernel
-``raytracingpbr_tpu/pallas/march_kernel.py::_march_kernel`` on the
-wavefront's main path: CONSTANT omega, ABSOLUTE hit test, no escape bound,
-analytic shapes, the active gate and the resume from ``(t, w, s, d)``.
+They replace the Pallas TPU kernel
+``raytracingpbr_tpu/pallas/march_kernel.py::_march_kernel``; one CUDA
+template serves every variant, named here by what it adds:
 
-What bounds it on an H100: FP32 ALU work, about 8 objects x ~25 flops per
-lane-trip on the Cornell path, while a lane reads about 40 bytes once. The
-design answers that with one thread per lane and a per-lane loop exit (no
-tile ever marches for its slowest lane's sake beyond its own warp), and the
-scene staged once per block in shared memory. Specialising the object loop
-on the scene's shape-type tuple, and the ``rot_perm`` shortcut, are later
-speed work.
+- ``k1a``: CONSTANT omega, ABSOLUTE hit test, no escape bound, analytic
+  shapes (the Cornell wavefront's march);
+- ``k1b``: the ROLLBACK_TO_ONE / ROLLBACK_HALF_UP policies, the CONE /
+  RELATIVE hit tests and the escape bound, on analytic shapes;
+- ``k1c``: any of those on a scene with the neural bunny (the MLP of
+  ``_bunny_tile``, weights packed by :func:`pack_bunny`).
+
+All have the active gate and the resume from ``(t, w, s, d)``.
+
+What bounds them on an H100: FP32 ALU work (about 25 flops per analytic
+object per lane-trip; about 1,300 flops and 48 sinf for a bunny lane inside
+the unit sphere), while a lane reads about 40 bytes once. The design
+answers that with one thread per lane and a per-lane loop exit, the scene
+and the MLP weights staged once per block in shared memory, and the MLP run
+per lane only inside its support.
 
 The plain PyTorch version is ``ops/march.march_resumable_plain``;
 ``ops/march.march_resumable`` sends CPU tensors there and CUDA tensors here.
-This wrapper never falls back: a CUDA tensor is marched by the kernel, or
-the call raises.
+This wrapper never falls back: a CUDA tensor is marched by a kernel, or the
+call raises, naming the kernel that would serve it (``cfg.bunny_mxu`` is
+K1d, not ported).
 
-Build: ``nvcc`` (route b: a plain C interface bound with ctypes) at first
-use, into ``build/raytracingpbr_tpu_torch/`` under the checkout, named after
-a hash of the source and flags so a stale build is never loaded. The flags
-keep ``-fmad=false`` and no fast math, so kernel and plain version agree
-bit for bit on the card.
+Build: ``nvcc`` (a plain C interface bound with ctypes) at first use, into
+``build/raytracingpbr_tpu_torch/`` under the checkout, named after a hash of
+the source and flags so a stale build is never loaded. The flags keep
+``-fmad=false`` and no fast math, so kernel and plain version agree bit for
+bit on the card.
 """
 from __future__ import annotations
 
@@ -33,10 +42,12 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from ..config import HitCriterion, OmegaPolicy, RenderConfig
+from ..ops import scene as scenelib
 from ..ops.sdf import SHAPE
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "march.cu"
@@ -46,11 +57,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 BLOCK = 256
 
-# Kernel launches made by march_resumable_cuda: a plain counter that a run
-# resets and reads to show which path it went through.
-LAUNCHES = 0
+# Kernel launches made by march_resumable_cuda, per variant: plain
+# counters that a run resets and reads to show which path it went through.
+LAUNCHES = {"k1a": 0, "k1b": 0, "k1c": 0}
+
+_POLICY = {OmegaPolicy.CONSTANT: 0, OmegaPolicy.ROLLBACK_TO_ONE: 1,
+           OmegaPolicy.ROLLBACK_HALF_UP: 2}
+_CRIT = {HitCriterion.ABSOLUTE: 0, HitCriterion.RELATIVE: 1,
+         HitCriterion.CONE: 2}
 
 _lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def nvcc_path() -> str:
@@ -96,41 +117,59 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rt_march_k1a.argtypes = (
-            [p, p, i, f, p, p, p, p, p, p, p, f, f, f, f, i, i]
-            + [p] * 8 + [i, p])
-        lib.rt_march_k1a.restype = i
+        lib.rt_march.argtypes = (
+            [p, p, p, i, f, p, p, p, p, p, p, p, f, f, f, f, f, f, i, i, i,
+             i, i] + [p] * 8 + [i, p])
+        lib.rt_march.restype = i
         lib.rt_march_max_objects.argtypes = []
         lib.rt_march_max_objects.restype = i
         _lib = lib
     return _lib
 
 
-def pack_scene(scene) -> torch.Tensor:
+def pack_scene(scene, bound2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-object transform block (n, 32) f32: [pos(3), scale(3), matrix
-    row-major (9), local_offset(3), bound^2 slot (1), pad(13)] — the TPU
-    kernel's layout. The bound slot stays 0: K1a has no escape bound."""
+    row-major (9), local_offset(3), bound^2 (1), pad(13)] — the TPU
+    kernel's layout. Column 18 holds ``bound2``, the squared scene bound
+    of the escape test (``scene.escape_bound2``, the value the plain march
+    compares against), or 0 without one."""
     n = scene.num_objects
     dev, dt = scene.position.device, scene.position.dtype
+    b2 = (torch.zeros((n, 1), dtype=dt, device=dev) if bound2 is None
+          else bound2.reshape(1, 1).expand(n, 1))
     return torch.cat([scene.position, scene.scale, scene.matrix.reshape(n, 9),
-                      scene.local_offset, torch.zeros((n, 14), dtype=dt,
-                                                      device=dev)], -1)
+                      scene.local_offset, b2,
+                      torch.zeros((n, 13), dtype=dt, device=dev)], -1)
 
 
-def _check_variant(scene, cfg: RenderConfig) -> None:
-    if cfg.omega_policy != OmegaPolicy.CONSTANT:
+def pack_bunny(scene) -> torch.Tensor:
+    """The bunny MLP as a (40, 16) f32 block: rows 0-2 w_in, 3 b_in, 4-19
+    w_h1, 20 b_h1, 21-36 w_h2, 37 b_h2, 38 w_out, 39 [bias_out, 0...]."""
+    b = scene.bunny
+    last = torch.zeros((1, 16), dtype=b.w_in.dtype, device=b.w_in.device)
+    last[0, 0] = b.bias_out
+    return torch.cat([b.w_in, b.b_in[None], b.w_h1, b.b_h1[None], b.w_h2,
+                      b.b_h2[None], b.w_out[None], last], 0)
+
+
+def variant(scene, cfg: RenderConfig) -> str:
+    """The kernel that marches this scene under this config: ``k1a``,
+    ``k1b`` or ``k1c``. Raises NotImplementedError for what none serves."""
+    if cfg.omega_policy not in _POLICY or cfg.hit_criterion not in _CRIT:
         raise NotImplementedError(
-            f"the CUDA march serves CONSTANT omega only, not "
-            f"{cfg.omega_policy} (kernel variant K1b)")
-    if cfg.hit_criterion != HitCriterion.ABSOLUTE:
-        raise NotImplementedError(
-            f"the CUDA march serves the ABSOLUTE hit test only, not "
-            f"{cfg.hit_criterion} (kernel variant K1b)")
-    if cfg.escape_bound and SHAPE.PLANE not in scene.shape_types:
-        raise NotImplementedError(
-            "the CUDA march has no escape bound (kernel variant K1b)")
+            f"no CUDA march serves {cfg.omega_policy} with "
+            f"{cfg.hit_criterion}")
     if SHAPE.BUNNY in scene.shape_types:
-        raise NotImplementedError("the bunny march is kernel variant K1c")
+        if cfg.bunny_mxu:
+            raise NotImplementedError(
+                "cfg.bunny_mxu asks for the tensor-core bunny MLP, kernel "
+                "K1d, which is not ported; K1c serves bunny_mxu=False")
+        return "k1c"
+    if (cfg.omega_policy == OmegaPolicy.CONSTANT
+            and cfg.hit_criterion == HitCriterion.ABSOLUTE
+            and not scenelib.has_escape_bound(scene, cfg)):
+        return "k1a"
+    return "k1b"
 
 
 def _vec(x: torch.Tensor, n: int, dtype, name: str) -> torch.Tensor:
@@ -143,14 +182,13 @@ def _vec(x: torch.Tensor, n: int, dtype, name: str) -> torch.Tensor:
 def march_resumable_cuda(scene, origin: torch.Tensor,
                          direction: torch.Tensor, cfg: RenderConfig,
                          active=None, init=None):
-    """Budget-capped resumable march on the card through K1a.
+    """Budget-capped resumable march on the card through K1a, K1b or K1c.
 
     Same contract as ``ops/march.march_resumable``; returns the tuple
     ``(t, index, hit, fin, w, s, d, done)`` (f32, i32, bool, i32, f32, f32,
-    f32, i32), each (N,). Raises NotImplementedError for variants the
-    kernel does not serve."""
-    global LAUNCHES
-    _check_variant(scene, cfg)
+    f32, i32), each (N,). Raises NotImplementedError for variants no
+    kernel serves."""
+    kind = variant(scene, cfg)
     if not (origin.is_cuda and direction.is_cuda):
         raise ValueError("march_resumable_cuda takes CUDA tensors")
     n = origin.shape[0]
@@ -168,7 +206,9 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
             f"{lib.rt_march_max_objects()} in shared memory")
     origin = origin.contiguous()
     direction = direction.contiguous()
-    params = pack_scene(scene).contiguous()
+    bound2 = scenelib.escape_bound2(scene, cfg)
+    params = pack_scene(scene, bound2).contiguous()
+    bunny = pack_bunny(scene).contiguous() if kind == "k1c" else None
     act = None if active is None else _vec(active, n, torch.bool, "active")
     inits = (None,) * 4 if init is None else tuple(
         _vec(v, n, torch.float32, k) for v, k in zip(init, "twsd"))
@@ -184,14 +224,20 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
     ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(origin.device):
         stream = torch.cuda.current_stream(origin.device).cuda_stream
-        rc = lib.rt_march_k1a(
-            ptr(params), ptr(scene.type_ids), scene.num_objects,
-            scene.box_round,
-            ptr(origin), ptr(direction), ptr(act), *(ptr(v) for v in inits),
-            cfg.march_t0, cfg.omega, cfg.hit_precision, cfg.max_dis,
+        # c_float rounds each Python float to f32 as PyTorch rounds a
+        # scalar operand of an f32 tensor op (the plain march's
+        # ``s * (1.0 + 1e-6)`` included), so both compare the same values
+        rc = lib.rt_march(
+            ptr(params), ptr(scene.type_ids), ptr(bunny), scene.num_objects,
+            scene.box_round, ptr(origin), ptr(direction), ptr(act),
+            *(ptr(v) for v in inits), cfg.march_t0, cfg.omega,
+            cfg.hit_precision, cfg.max_dis, cfg.pixel_radius, 1.0 + 1e-6,
+            _POLICY[cfg.omega_policy], _CRIT[cfg.hit_criterion],
+            int(bound2 is not None),
             cfg.max_raymarch, n, ptr(t), ptr(idx), ptr(hit), ptr(fin),
             ptr(w), ptr(s), ptr(d), ptr(done), BLOCK, stream)
     if rc != 0:
-        raise RuntimeError(f"march kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"march kernel {kind} launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES[kind] += 1
     return t, idx, hit, fin, w, s, d, done

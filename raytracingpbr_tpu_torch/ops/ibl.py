@@ -1,5 +1,8 @@
-"""Environment lighting (port of ``raytracingpbr_tpu/ops/ibl.py``):
-the analytic skies. The HDR texture kind waits for the HDR slice."""
+"""Environment lighting (port of ``raytracingpbr_tpu/ops/ibl.py``): the
+analytic skies and the equirectangular HDR map, fetched nearest or
+bilinear with plain gathers (the JAX package's one-hot matmul fetch is a
+TPU workaround and is not carried over). NEE environment sampling is not
+ported yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from ..core.math import mix
+from ..core.math import mix, sample_spherical_map
 
 
 class SkyKind(str, enum.Enum):
@@ -56,6 +59,55 @@ def gradient_sky(scale: float = 1.8, device=None,
                        color_b=_scalar([0.25, 0.35, 1.0], device, dtype))
 
 
+def adjust(rgb, exposure, gamma):
+    """Exposure multiply and power curve (the HDR pipeline passes gamma =
+    2.2 to pre-bake the decode into the texture)."""
+    return (rgb * exposure) ** gamma
+
+
+def hdr_environment(image, exposure: float = 1.4, gamma: float = 2.2,
+                    bilinear: bool = False, prebake: bool = True,
+                    scale: float = 1.0, device=None,
+                    dtype=torch.float32) -> Environment:
+    """HDR equirect environment from a (W, H, 3) linear image indexed
+    ``img[x, y]``; ``prebake`` applies the exposure/gamma adjust once
+    here."""
+    img = torch.as_tensor(image, dtype=dtype, device=device)
+    if prebake:
+        img = adjust(img, exposure, gamma)
+    return Environment(SkyKind.HDR.value, bilinear=bilinear, image=img,
+                       scale=_scalar(scale, img.device, dtype))
+
+
+def _texture_nearest(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Nearest texel, by truncation of ``uv * (W, H)``."""
+    w, h = img.shape[0], img.shape[1]
+    x = torch.clamp((uv[..., 0] * w).to(torch.int64), 0, w - 1)
+    y = torch.clamp((uv[..., 1] * h).to(torch.int64), 0, h - 1)
+    return img[x, y]
+
+
+def _texture_bilinear(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear fetch, wrapping in x and clamping in y."""
+    w, h = img.shape[0], img.shape[1]
+    fx = uv[..., 0] * w - 0.5
+    fy = uv[..., 1] * h - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    tx = (fx - x0)[..., None]
+    ty = (fy - y0)[..., None]
+    x0, y0 = x0.to(torch.int64), y0.to(torch.int64)
+    x0w = torch.remainder(x0, w)
+    x1w = torch.remainder(x0 + 1, w)
+    y0c = torch.clamp(y0, 0, h - 1)
+    y1c = torch.clamp(y0 + 1, 0, h - 1)
+    c00 = img[x0w, y0c]
+    c10 = img[x1w, y0c]
+    c01 = img[x0w, y1c]
+    c11 = img[x1w, y1c]
+    return mix(mix(c00, c10, tx), mix(c01, c11, tx), ty)
+
+
 def sky_color(env: Environment, direction: torch.Tensor) -> torch.Tensor:
     """Environment radiance along ``direction`` (N, 3) -> (N, 3)."""
     kind = SkyKind(env.kind)
@@ -68,4 +120,8 @@ def sky_color(env: Environment, direction: torch.Tensor) -> torch.Tensor:
     if kind == SkyKind.GRADIENT:
         t = 0.5 * direction[..., 1:2] + 0.5
         return mix(env.color_a, env.color_b, t) * env.scale
-    raise NotImplementedError("HDR environments are not ported yet")
+    if env.image is None:
+        raise ValueError("an HDR environment needs its (W, H, 3) image")
+    uv = sample_spherical_map(direction)
+    tex = _texture_bilinear if env.bilinear else _texture_nearest
+    return tex(env.image, uv) * env.scale

@@ -3,7 +3,10 @@
 ``march_resumable_plain`` is the plain PyTorch march: the whole flat batch
 advances in lock-step with per-lane masks until every lane has hit or
 escaped, or the trip budget is spent. It is the oracle for the CUDA march
-kernel (``kernels/march_kernel.py``), and on the CPU it is the march.
+kernels (``kernels/march_kernel.py``), and on the CPU it is the march. Its
+``nearest`` evaluates the bunny MLP written out in the kernel's order of
+operations (about 150 elementwise launches a trip on the card), so the
+two agree bit for bit there.
 
 Dispatch follows the tensors: ``march_resumable`` and ``march`` send CUDA
 tensors to the kernel and CPU tensors to the plain version.
@@ -65,11 +68,7 @@ def _march_loop(scene: Scene, origin, direction, cfg: RenderConfig,
     hit = torch.zeros_like(done)
     fin = torch.where(done, 0, cfg.max_raymarch).to(torch.int32)
 
-    bound2 = None
-    if cfg.escape_bound:
-        bound = scenelib.bounding_radius(scene)
-        if bound is not None:
-            bound2 = bound * bound
+    bound2 = scenelib.escape_bound2(scene, cfg)
 
     i = 0
     while i < cfg.max_raymarch and not bool(done.all()):

@@ -5,19 +5,22 @@
 ``scene.to(device)`` moves it; its static metadata (``shape_types``,
 ``type_splits``, ``bucket_types``, ``box_round``, ``rot_perm``) are plain
 attributes. Objects are sorted by shape type and evaluated bucket by bucket,
-as in the JAX package.
+as in the JAX package. A scene with a BUNNY object carries the MLP weights
+as ``bunny_*`` buffers (``scene.bunny``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..core.math import rotate_euler
 from . import sdf as sdflib
-from .sdf import SHAPE
+from .sdf import SHAPE, BunnyMLP
 
 MAX_DIS = sdflib.MAX_DIS
 
@@ -50,11 +53,11 @@ class Scene(nn.Module):
     permutation)."""
 
     def __init__(self, shape_types, type_splits, bucket_types, box_round,
-                 rot_perm, **tensors):
+                 rot_perm, bunny: Optional[BunnyMLP] = None, **tensors):
         super().__init__()
-        if SHAPE.BUNNY in shape_types:
-            raise NotImplementedError(
-                "the neural-bunny SDF is not ported yet")
+        if SHAPE.BUNNY in shape_types and bunny is None:
+            raise ValueError("a scene with a BUNNY object needs the MLP "
+                             "weights (sdf.load_bunny)")
         self.shape_types = tuple(int(t) for t in shape_types)
         self.type_splits = tuple(int(s) for s in type_splits)
         self.bucket_types = tuple(int(t) for t in bucket_types)
@@ -62,6 +65,10 @@ class Scene(nn.Module):
         self.rot_perm = tuple(rot_perm)
         for name in _BUFFERS:
             self.register_buffer(name, tensors[name])
+        self.has_bunny = bunny is not None
+        if bunny is not None:
+            for name, v in zip(BunnyMLP._fields, bunny):
+                self.register_buffer("bunny_" + name, v)
         # the shape types as a device array, for the CUDA march kernel
         self.register_buffer("type_ids", torch.tensor(
             self.shape_types, dtype=torch.int32,
@@ -74,6 +81,24 @@ class Scene(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.position.device
+
+    @property
+    def bunny(self) -> Optional[BunnyMLP]:
+        if not self.has_bunny:
+            return None
+        return BunnyMLP(*(getattr(self, "bunny_" + k)
+                          for k in BunnyMLP._fields))
+
+    def replace(self, **kw) -> "Scene":
+        """A new Scene with some buffers (or ``rot_perm``) replaced."""
+        meta = dict(shape_types=self.shape_types,
+                    type_splits=self.type_splits,
+                    bucket_types=self.bucket_types, box_round=self.box_round,
+                    rot_perm=self.rot_perm, bunny=self.bunny)
+        meta.update({k: kw.pop(k) for k in list(kw) if k in meta})
+        tensors = {name: getattr(self, name) for name in _BUFFERS}
+        tensors.update(kw)
+        return Scene(**meta, **tensors)
 
 
 def _snap_and_classify(mats: np.ndarray, tol: float = 1e-6):
@@ -116,6 +141,8 @@ def make_scene(objects: Sequence[ObjectSpec], box_round: float = 0.03,
     objs = sorted(objects, key=lambda o: int(o.shape))
     types = tuple(int(o.shape) for o in objs)
     splits, bucket_types = bucket_layout(types)
+    bunny = (sdflib.load_bunny(device, dtype) if SHAPE.BUNNY in types
+             else None)
 
     def stack(get, tail=()):
         arr = np.array([get(o) for o in objs], dtype=np.float32)
@@ -139,25 +166,43 @@ def make_scene(objects: Sequence[ObjectSpec], box_round: float = 0.03,
         metallic=stack(lambda o: o.metallic),
         transmission=stack(lambda o: o.transmission),
         ior=stack(lambda o: o.ior),
+        bunny=bunny,
     )
 
 
-def _sd_typed(scene: Scene, type_id: int, p_local, scale):
+def bake(scene: Scene) -> Scene:
+    """Re-bake the rotation matrices from the Euler degrees (after a change
+    of ``rotation``); the signed-permutation classification is dropped."""
+    return scene.replace(matrix=sdflib.bake_matrices(scene.rotation),
+                         rot_perm=(None,) * scene.num_objects)
+
+
+def _sd_typed(scene: Scene, type_id: int, p_local, scale,
+              kernel_order: bool = False):
     if type_id == SHAPE.BOX:
         return sdflib.sd_round_box(p_local, scale, scene.box_round)
+    if type_id == SHAPE.BUNNY:
+        if kernel_order:
+            return sdflib.sd_bunny_unrolled(p_local[..., 0], p_local[..., 1],
+                                            p_local[..., 2], scene.bunny)
+        return sdflib.sd_bunny(p_local, scene.bunny)
     return sdflib.SHAPE_FUNC[SHAPE(type_id)](p_local, scale)
 
 
-def all_distances(scene: Scene, p: torch.Tensor) -> torch.Tensor:
+def all_distances(scene: Scene, p: torch.Tensor,
+                  kernel_order: bool = False) -> torch.Tensor:
     """Signed distance from points ``p`` (..., 3) to every object ->
-    (..., n), one static bucket of equal-typed objects at a time."""
+    (..., n), one static bucket of equal-typed objects at a time.
+    ``kernel_order``: evaluate the bunny MLP in the march kernel's order
+    (``sdf.sd_bunny_unrolled``) instead of with matmuls."""
     chunks = []
     for b, t in enumerate(scene.bucket_types):
         lo, hi = scene.type_splits[b], scene.type_splits[b + 1]
         pl = sdflib.to_object_space(p[..., None, :], scene.position[lo:hi],
                                     scene.matrix[lo:hi],
                                     scene.local_offset[lo:hi])
-        chunks.append(_sd_typed(scene, t, pl, scene.scale[lo:hi]))
+        chunks.append(_sd_typed(scene, t, pl, scene.scale[lo:hi],
+                                kernel_order))
     return torch.cat(chunks, dim=-1)
 
 
@@ -169,8 +214,8 @@ def nearest(scene: Scene, p: torch.Tensor):
     distance is clamped at MAX_DIS, and the index stays 0 on points where
     no distance is below MAX_DIS. (JAX's ``nearest`` takes an argmin and
     then clamps, so on such far points its index can differ; it agrees
-    everywhere else.)"""
-    d = torch.abs(all_distances(scene, p))
+    everywhere else.) The bunny is evaluated in the kernel's order too."""
+    d = torch.abs(all_distances(scene, p, kernel_order=True))
     best = torch.full(d.shape[:-1], MAX_DIS, dtype=d.dtype, device=d.device)
     idx = torch.zeros(d.shape[:-1], dtype=torch.int32, device=d.device)
     for i in range(scene.num_objects):
@@ -202,6 +247,10 @@ def bounding_radius(scene: Scene) -> Optional[torch.Tensor]:
             r = torch.sqrt(s0 * s0 + s1 * s1)
         elif t == SHAPE.CONE:
             r = s1 * torch.sqrt(s0 * s0 + s2 * s2) / torch.clamp_min(s0, 1e-6)
+        elif t == SHAPE.BUNNY:
+            # the MLP's support is the unit sphere in local coordinates,
+            # whatever the scale (sd_bunny ignores it)
+            r = torch.ones_like(s0)
         else:  # SHAPE.NONE
             r = torch.zeros_like(s0)
         radii.append(r)
@@ -209,6 +258,23 @@ def bounding_radius(scene: Scene) -> Optional[torch.Tensor]:
              + torch.linalg.vector_norm(scene.local_offset, dim=-1)
              + torch.stack(radii))
     return torch.amax(r_obj) * 1.05 + 0.1
+
+
+def has_escape_bound(scene: Scene, cfg) -> bool:
+    """Whether the march runs the escape-bound test: ``cfg.escape_bound``
+    on a bounded scene (no PLANE)."""
+    return cfg.escape_bound and SHAPE.PLANE not in scene.shape_types
+
+
+def escape_bound2(scene: Scene, cfg) -> Optional[torch.Tensor]:
+    """The squared bounding radius that the march's escape test compares
+    against, or None without the test. The plain march and the kernel's
+    packed scene both take it from here, so they compare against the same
+    f32 value."""
+    if not has_escape_bound(scene, cfg):
+        return None
+    bound = bounding_radius(scene)
+    return bound * bound
 
 
 class Materials(NamedTuple):
@@ -240,3 +306,22 @@ def calc_normal(scene: Scene, idx: torch.Tensor,
         q = p.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(sd_object(scene, idx, q).sum(), q)
     return g / torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+
+
+def animate(scene: Scene, frame, spin_axis=(0.0, 0.0, 1.0),
+            period: float = 120.0, bob: float = 0.1) -> Scene:
+    """Animation of the bunny scenes: after the object rotation, spin about
+    z by ``t = pi*frame/period`` and bob along z by ``bob*sin(t)``, folded
+    into the baked matrix and the post-rotation ``local_offset``. ``frame``
+    may be a tensor on the scene's device (no host sync)."""
+    dt = scene.position.dtype
+    frame = torch.as_tensor(frame, device=scene.device)
+    t = math.pi * frame.to(dt) / period
+    axis = torch.tensor(spin_axis, dtype=dt, device=scene.device)
+    r_anim = rotate_euler(axis * t)
+    new_matrix = torch.einsum("ij,njk->nik", r_anim, scene.matrix)
+    offset = torch.broadcast_to(
+        torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=scene.device)
+        * bob * torch.sin(t), scene.local_offset.shape)
+    return scene.replace(matrix=new_matrix, local_offset=offset,
+                         rot_perm=(None,) * scene.num_objects)

@@ -1,8 +1,10 @@
-"""The CUDA march kernel (K1a) against the plain PyTorch march on the card.
+"""The CUDA march kernels (K1a, K1b, K1c) against the plain PyTorch march
+on the card.
 
-Built with -fmad=false and without fast math, the kernel rounds every add
+Built with -fmad=false and without fast math, the kernels round every add
 and multiply as PyTorch's elementwise CUDA ops do, in the same order, so
-all eight outputs must be bit-equal. These tests need a CUDA device and
+all eight outputs must be bit-equal (K1c's ``sinf`` is libdevice's, as
+``torch.sin``'s is on the card). These tests need a CUDA device and
 skip without one; this file imports no jax, so it runs on a machine that
 has only PyTorch:
 
@@ -15,7 +17,7 @@ import torch
 
 from raytracingpbr_tpu_torch.core import rng as trng
 from raytracingpbr_tpu_torch.kernels import march_kernel
-from raytracingpbr_tpu_torch.models import cornell
+from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import camera as tcamera
 from raytracingpbr_tpu_torch.ops import march as tmarch
 from raytracingpbr_tpu_torch.ops.scene import ObjectSpec, make_scene
@@ -44,10 +46,11 @@ def assert_bit_equal(a, b):
 
 
 def both(scene, o, d, cfg, active=None, init=None):
-    before = march_kernel.LAUNCHES
+    kind = march_kernel.variant(scene, cfg)
+    before = march_kernel.LAUNCHES[kind]
     k = tmarch.ResumableResult(*march_kernel.march_resumable_cuda(
         scene, o, d, cfg, active=active, init=init))
-    assert march_kernel.LAUNCHES == before + (1 if o.shape[0] else 0)
+    assert march_kernel.LAUNCHES[kind] == before + (1 if o.shape[0] else 0)
     p = tmarch.march_resumable_plain(scene, o, d, cfg, active=active,
                                      init=init)
     return k, p
@@ -68,9 +71,9 @@ def test_primaries_chained_budget(cuda_device):
         if not bool(live.any()):
             break
     # the wavefront dispatch goes through the kernel on CUDA tensors
-    before = march_kernel.LAUNCHES
+    before = march_kernel.LAUNCHES["k1a"]
     tmarch.march_resumable(scene, o, d, mcfg)
-    assert march_kernel.LAUNCHES == before + 1
+    assert march_kernel.LAUNCHES["k1a"] == before + 1
 
 
 @pytest.mark.parametrize("n", [0, 1, 255, 257, 4097])
@@ -111,3 +114,90 @@ def test_all_analytic_shapes(cuda_device):
     k, p = both(scene, o, d, cfg)
     assert_bit_equal(k, p)
     assert bool(k.hit.any())
+
+
+def _rays(n, seed, center, spread, device):
+    return tuple(torch.as_tensor(v, device=device)
+                 for v in random_rays(n, seed=seed, center=center,
+                                      spread=spread))
+
+
+def _gated_resumed(scene, o, d, cfg, seed):
+    """Fresh, gated and resumed calls, each bit-equal."""
+    n = o.shape[0]
+    k, p = both(scene, o, d, cfg)
+    assert_bit_equal(k, p)
+    rng = np.random.default_rng(seed)
+    active = torch.as_tensor(rng.random(n) < 0.5, device=o.device)
+    k, p = both(scene, o, d, cfg, active=active, init=(k.t, k.w, k.s, k.d))
+    assert_bit_equal(k, p)
+    k, p = both(scene, o, d, cfg, active=torch.zeros_like(active))
+    assert_bit_equal(k, p)
+
+
+K1B_CASES = {
+    "engine": (demo.engine_scene, demo.engine_config),
+    "scene_demo": (demo.scene_demo_scene, demo.scene_demo_config),
+    "tokyo": (demo.engine_scene, demo.tokyo_config),
+    "engine_bound": (demo.engine_scene,
+                     lambda: demo.engine_config().replace(escape_bound=True)),
+    "cornell_v3": (cornell.full_scene, cornell.v3_config),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1B_CASES))
+def test_k1b_variants(cuda_device, case):
+    make_scene_fn, make_cfg = K1B_CASES[case]
+    scene = make_scene_fn(device=cuda_device)
+    cfg = make_cfg().replace(max_raymarch=128)
+    assert march_kernel.variant(scene, cfg) == "k1b"
+    o, d = _rays(8192, 4, (0.0, 0.0, 3.5), 0.3, cuda_device)
+    _gated_resumed(scene, o, d, cfg, seed=4)
+
+
+BUNNY_CASES = {
+    "glass": (bunny.glass_scene, bunny.glass_config),
+    "metal": (bunny.metal_scene, bunny.metal_config),
+    "animated": (lambda device: bunny.animated_scene(
+        bunny.glass_scene(device), 60), bunny.glass_config),
+    "glass_bound": (bunny.glass_scene, lambda s: bunny.glass_config(
+        s).replace(escape_bound=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUNNY_CASES))
+def test_k1c_bunny(cuda_device, case):
+    make_scene_fn, make_cfg = BUNNY_CASES[case]
+    scene = make_scene_fn(device=cuda_device)
+    cfg = make_cfg(8).replace(max_raymarch=64)
+    assert march_kernel.variant(scene, cfg) == "k1c"
+    # camera primaries, then rays aimed at the bunny with a spread
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=cuda_device)
+    u = trng.uniform4(pid, 0, 1, cfg.seed)
+    uv = tcamera.pixel_uv(pid, cfg.width, cfg.height, u[0], u[1])
+    rays = tcamera.get_ray(bunny.camera(cfg.width / cfg.height, cuda_device),
+                           uv, u[2], u[3])
+    _gated_resumed(scene, rays.origin, rays.direction, cfg, seed=1)
+    o, d = _rays(4096, 3, (0.0, 0.0, 2.5), 0.1, cuda_device)
+    d = -o + 0.35 * torch.randn(o.shape, generator=torch.Generator(
+        cuda_device).manual_seed(3), device=cuda_device)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    k, p = both(scene, o, d, cfg)
+    assert_bit_equal(k, p)
+    assert bool(k.hit.any())
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 4097])
+def test_k1c_ragged_gated_resumed(cuda_device, n):
+    scene = bunny.glass_scene(cuda_device)
+    cfg = bunny.glass_config(8).replace(max_raymarch=32)
+    o, d = _rays(n, n, (0.0, 0.0, 2.0), 0.5, cuda_device)
+    _gated_resumed(scene, o, d, cfg, seed=n)
+
+
+def test_bunny_mxu_raises_naming_k1d(cuda_device):
+    scene = bunny.glass_scene(cuda_device)
+    cfg = bunny.glass_config(8).replace(bunny_mxu=True)
+    o, d = _rays(16, 0, (0.0, 0.0, 2.5), 0.1, cuda_device)
+    with pytest.raises(NotImplementedError, match="K1d"):
+        tmarch.march_resumable(scene, o, d, cfg)

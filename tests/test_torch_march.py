@@ -20,6 +20,7 @@ from raytracingpbr_tpu.ops import camera as jcamera
 from raytracingpbr_tpu.ops import march as jmarch
 from raytracingpbr_tpu_torch.convert import config_from_jax, scene_from_jax
 from raytracingpbr_tpu_torch.kernels import march_kernel
+from raytracingpbr_tpu_torch.models import bunny as tbunny
 from raytracingpbr_tpu_torch.models import cornell as tcornell
 from raytracingpbr_tpu_torch.ops import march as tmarch
 
@@ -187,7 +188,7 @@ def test_cpu_tensors_take_the_plain_version():
     scene = tcornell.full_scene()
     cfg = tcornell.full_config().replace(max_raymarch=16)
     o, d = random_rays(64, seed=0)
-    before = march_kernel.LAUNCHES
+    before = dict(march_kernel.LAUNCHES)
     rr = tmarch.march_resumable(scene, tt(o), tt(d), cfg)
     ref = tmarch.march_resumable_plain(scene, tt(o), tt(d), cfg)
     assert march_kernel.LAUNCHES == before
@@ -201,9 +202,13 @@ def test_kernel_wrapper_refuses_cpu_and_other_variants():
     with pytest.raises(ValueError):
         march_kernel.march_resumable_cuda(scene, tt(o), tt(d),
                                           tcornell.full_config())
-    with pytest.raises(NotImplementedError):
-        march_kernel.march_resumable_cuda(scene, tt(o), tt(d),
-                                          tcornell.v3_config())
+    # the variant check comes first: the tensor-core bunny MLP is K1d
+    with pytest.raises(NotImplementedError, match="K1d"):
+        march_kernel.march_resumable_cuda(
+            tbunny.glass_scene(), tt(o), tt(d),
+            tbunny.glass_config().replace(bunny_mxu=True))
+    assert march_kernel.variant(scene, tcornell.full_config()) == "k1a"
+    assert march_kernel.variant(scene, tcornell.v3_config()) == "k1b"
     with pytest.raises(NotImplementedError):
         tmarch.march(scene, tt(o), tt(d), tcornell.full_config(),
                      differentiable=True)

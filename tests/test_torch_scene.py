@@ -163,5 +163,11 @@ def test_sdf_primitives_match(shape):
 
 
 def test_bunny_scene_raises():
-    with pytest.raises(NotImplementedError):
-        tscene.make_scene([tscene.ObjectSpec(tsdf.SHAPE.BUNNY)])
+    """A BUNNY object needs the MLP weights: ``make_scene`` loads them, a
+    bare ``Scene`` without them raises."""
+    s = tscene.make_scene([tscene.ObjectSpec(tsdf.SHAPE.BUNNY)])
+    assert s.bunny is not None and s.bunny.w_h1.shape == (16, 16)
+    with pytest.raises(ValueError):
+        tscene.Scene(s.shape_types, s.type_splits, s.bucket_types,
+                     s.box_round, s.rot_perm,
+                     **{k: getattr(s, k) for k in tscene._BUFFERS})

@@ -108,8 +108,10 @@ def test_sky_matches(kind):
 
 
 def test_hdr_sky_raises():
+    """An HDR environment without its image raises (the HDR lookup itself
+    is held against JAX in ``tests/test_torch_ibl.py``)."""
     env = tibl.Environment(kind=tibl.SkyKind.HDR.value)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tibl.sky_color(env, tt(np.zeros((4, 3), np.float32)))
 
 
