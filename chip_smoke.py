@@ -8,13 +8,19 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 0.  device: the card's name and power limit, torch / CUDA versions,
     CUDA_HOME, whether triton imports, TF32 matmuls off. No card: fail (no
     CPU fallback).
-1.  build the CUDA march kernels (K1a, K1b, K1c: one source) from
-    ``raytracingpbr_tpu_torch/csrc``.
+1.  build every kernel from ``raytracingpbr_tpu_torch/csrc``, one nvcc per
+    source started together (march.cu: K1a, K1b, K1c; march_mxu.cu: K1d;
+    speedlight.cu: K2), and print what ``-Xptxas -v`` says of K1d and K2.
+1b. K2 (the FP32 FMA roof) vs its plain version at a small ragged size
+    and on the sweep's own inputs at each of its configurations (rtol
+    1e-5: FFMA rounds once, the plain multiply and add twice, and the
+    recurrence contracts), kernel and plain timed on the roof's
+    configuration.
 2.  K1a vs its plain PyTorch version on the same CUDA tensors at the Cornell
     path's shapes (480x480 primaries chained in budgets of 32 over 512
     trips; the mixed split-march state after 3 plain wavefront steps; an
-    all-inactive gate; a ragged N): all eight outputs bit-equal. Median time
-    of each version.
+    all-inactive gate; a ragged N): all eight outputs bit-equal. Times of
+    each version, in turns, on the primaries and on the mixed state.
 2b. K1c and K1b vs the plain version. K1c: bunny glass primaries at 960x540
     (chained budget-32 calls, at most 4), the mixed state after 3 wavefront
     steps of the bunny path at 1920x1080 (made on the card), the metal scene
@@ -24,6 +30,16 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     RELATIVE) configs and the escape bound, on 768x432 primaries and random
     rays. Bit-equal on all eight outputs. Times of each variant, kernel and
     plain, in turns.
+2c. K1d (``cfg.bunny_mxu``, the MLP on the tensor cores) vs its plain
+    version (the MLP in the matmul form) on the glass mixed state and on
+    metal primaries at 1920x1080, chained, held to
+    ``march.assert_march_close``: at least 99.9% of lanes agree on hit,
+    equal index where both hit, t within rtol and atol 1e-3 wherever hit
+    agrees save a decision one trip apart and at most one grazing lane
+    in 10,000. The MLP alone on 2^20 points in the unit ball within
+    1e-6 of a float64 evaluation on the host. K1d vs K1c on the metal
+    primaries over the full 512-trip budget (hit agreement, |dt|). Times
+    in turns: K1d and plain, then K1c and K1d.
 3.  the Cornell main path: progressive wavefront frames of the full-PBR
     Cornell box (480x480, 4 steps per frame, 512-trip march in budgets of
     32, black sky, ACES then gamma) as ``bench.py`` times them: 1 + 3
@@ -33,8 +49,26 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     synthetic HDR sky, the scene animated to frame 12 on the card; 1 + 3
     warm-up frames, 10 timed, then re-animated to frame 13 for one more
     frame. K1c must launch 4 times a frame.
+3c. the metal bunny path at full width: ``metal_config()`` at 3840x2160, 4
+    steps per frame, the 512-trip march in budgets of 32, omega 0.9, the
+    HDR sky; with ``bunny_mxu`` off (K1c) and on (K1d) in turns off, on,
+    on, off, each 1 + 3 warm-up frames and 10 timed; then one
+    ``torch.profiler`` window of 3 frames each for the device idle share.
+    4 launches a frame of the one kernel, none of the other.
+3d. the metal path's budget-32 call at 3840x2160 on its state after 16
+    steps (where its timed frames start): K1c bit-equal to the plain
+    march, K1d within the march bar of 2c.
 4.  the ``wavefront_cornell_full`` golden rendered on the card: >= 35 dB.
 4b. the ``wavefront_scene_demo`` golden on the card (K1b's path): >= 35 dB.
+5.  utilization (``bench.py``'s speed-of-light extra): K2's roof (one
+    sweep, which ``march_utilization`` reads), then
+    ``bench.py``'s Cornell march (480x480 primaries, one unsplit 512-trip
+    march through K1a) and each kernel's budget-32 state (K1a: the Cornell
+    mixed state; K1b: scene_demo's 768x432 primaries; K1c and K1d: the
+    glass mixed state at 1920x1080 and the metal path's state at 3840x2160
+    after 16 steps, where its timed frames start): lane-trips needed and
+    executed, flops, achieved GFLOP/s,
+    the share of K2's roof and of 67 TFLOP/s, and the bound.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON record, the card's name and power
@@ -52,11 +86,13 @@ import torch
 from raytracingpbr_tpu_torch.core import rng
 from raytracingpbr_tpu_torch.core.types import make_frame_state
 from raytracingpbr_tpu_torch.io.image import read_png
-from raytracingpbr_tpu_torch.kernels import march_kernel
+from raytracingpbr_tpu_torch.kernels import build, fma_kernel, march_kernel
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import camera, march, scene as scenelib
 from raytracingpbr_tpu_torch.ops.integrator import (render_frame,
                                                     render_image_progressive)
+from raytracingpbr_tpu_torch.ops.sdf import BunnyMLP, bunny_mlp_eval
+from raytracingpbr_tpu_torch.utils import speedlight
 from raytracingpbr_tpu_torch.utils.metrics import psnr
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -64,15 +100,18 @@ GOLDEN = os.path.join(REPO, "assets", "goldens", "wavefront_cornell_full.png")
 GOLDEN_DEMO = os.path.join(REPO, "assets", "goldens",
                            "wavefront_scene_demo.png")
 FIELDS = ("t", "index", "hit", "fin", "w", "s", "d", "done")
-SOURCE = "raytracingpbr_tpu_torch/csrc/march.cu"
+CSRC = "raytracingpbr_tpu_torch/csrc"
 TPU_KERNEL = "raytracingpbr_tpu/pallas/march_kernel.py"
 
 # Sizes of the phases (the main paths' are the workloads' own).
-BUNNY_RES = (1920, 1080)      # phase 3b and the K1c mixed state
+BUNNY_RES = (1920, 1080)      # phase 3b, the K1c/K1d mixed state, K1d cmp
 BUNNY_CMP_RES = (960, 540)    # K1c primaries
 K1B_RES = (768, 432)          # K1b primaries
 RANDOM_RAYS = 1 << 18         # K1b random rays
+MLP_POINTS = 1 << 20          # K1d's MLP alone
 TIMED_FRAMES = 10
+# K2's comparison with its plain version: (threads, iters, chains, unroll)
+K2_CHECK = (132 * 256 + 3, 64)
 
 
 def log(*a):
@@ -101,6 +140,13 @@ def bunny_config():
                                         samples_per_pixel=1)
 
 
+def metal_config():
+    """The metal bunny as the reference's workload table runs it: 3840x2160,
+    4 steps a frame of one sample each."""
+    return bunny.metal_config().replace(samples_per_frame=4,
+                                        samples_per_pixel=1)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke run needs the card")
@@ -109,57 +155,47 @@ def phase_device():
         "devices", torch.cuda.device_count(),
         "name", torch.cuda.get_device_name(0))
     log("[0] CUDA_HOME", os.environ.get("CUDA_HOME"), "nvcc",
-        march_kernel.nvcc_path())
+        build.nvcc_path())
     try:
         import triton
         log("[0] triton", triton.__version__)
     except ImportError as e:
         log("[0] triton not importable:", e)
-    # the bunny's matmul form (normals) must run in full f32
+    # the bunny's matmul form (normals, K1d's plain version) runs in full f32
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the bunny MLP needs f32")
     return torch.device("cuda", 0)
 
 
+def ptxas_summary(name: str) -> str:
+    """Registers, shared memory and spills over a library's kernels."""
+    regs, spills, smem = [], [], []
+    for line in build.ptxas_report(name).splitlines():
+        if "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split()[0]))
+            if "smem" in line:
+                smem.append(int(line.split("bytes smem")[0].split()[-1]))
+        if "spill stores" in line:
+            spills.append(int(line.split("bytes spill stores")[0]
+                              .split()[-1]))
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{max(smem, default=0)} bytes smem at most, spill stores "
+            f"{min(spills)}-{max(spills)} bytes")
+
+
 def phase_build():
     t0 = time.perf_counter()
-    path = march_kernel.build()
-    march_kernel.load()
+    paths = build.build_all()
+    march_kernel.load("march")
+    march_kernel.load("march_mxu")
+    fma_kernel.load()
     secs = time.perf_counter() - t0
-    log(f"[1] built {os.path.relpath(path, REPO)} in {secs:.2f} s")
+    libs = ", ".join(os.path.relpath(p, REPO) for p in paths.values())
+    log(f"[1] built {libs} in {secs:.2f} s (one nvcc per source, in "
+        f"parallel)")
+    for name, label in (("march_mxu", "K1d"), ("speedlight", "K2")):
+        log(f"[1] ptxas {label} ({name}.cu): {ptxas_summary(name)}")
     return secs
-
-
-def compare(scene, o, d, cfg, active=None, init=None):
-    """Kernel vs plain on the same inputs; asserts all eight outputs are
-    bit-equal. Returns (kernel result, max abs difference)."""
-    k = march.ResumableResult(*march_kernel.march_resumable_cuda(
-        scene, o, d, cfg, active=active, init=init))
-    p = march.march_resumable_plain(scene, o, d, cfg, active=active,
-                                    init=init)
-    bad = {name: int((a != b).sum()) for name, a, b in zip(FIELDS, k, p)}
-    if any(bad.values()):
-        raise AssertionError(f"lanes differ between kernel and plain march: "
-                             f"{bad}")
-    err = max((float((a - b).abs().max()) for a, b in zip(k, p)
-               if a.dtype.is_floating_point and a.numel()), default=0.0)
-    return k, err
-
-
-def chain(scene, o, d, cfg, total, max_calls):
-    """Chained budget-B calls (B = ``cfg.max_raymarch``) of kernel and
-    plain, each compared; stops at convergence, after ``total`` trips or
-    after ``max_calls``. Returns (calls, max abs err, lanes unconverged)."""
-    live = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
-    init, calls, err = None, 0, 0.0
-    for _ in range(min(total // cfg.max_raymarch, max_calls)):
-        k, e = compare(scene, o, d, cfg, active=live, init=init)
-        calls, err = calls + 1, max(err, e)
-        live = live & (k.done == 0)
-        init = (k.t, k.w, k.s, k.d)
-        if not bool(live.any()):
-            break
-    return calls, err, int(live.sum())
 
 
 def median_ms(fn, reps=15):
@@ -183,6 +219,95 @@ def in_turns(run_k, run_p, reps_k=15, reps_p=15):
     ms = [median_ms(run_k, reps_k), median_ms(run_p, reps_p),
           median_ms(run_p, reps_p), median_ms(run_k, reps_k)]
     return (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2, ms
+
+
+def phase_k2(dev):
+    """K2 against its plain version (rtol 1e-5) on varied inputs at a small
+    ragged size and on the sweep's own inputs at each of its
+    configurations, then both timed on the roof's configuration (the sweep
+    itself runs in phase 5)."""
+    n, iters = K2_CHECK
+    x = torch.rand(n, generator=torch.Generator().manual_seed(0)).to(dev)
+    err = 0.0
+    for chains, unroll in fma_kernel.SHAPES:
+        got = fma_kernel.fma_chains(x, iters, chains, unroll)
+        ref = fma_kernel.fma_chains_plain(x, iters, chains, unroll)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+        err = max(err, float((got - ref).abs().max()))
+    log(f"[1b] K2 vs plain at {n} lanes x {iters} trips, every (chains, "
+        f"unroll) of {fma_kernel.SHAPES}: within rtol 1e-5, max |err| "
+        f"{err:.3e}")
+    for threads, iters, chains, unroll in speedlight.FMA_CONFIGS:
+        xs = torch.full((threads,), 0.7, dtype=torch.float32, device=dev)
+        got = fma_kernel.fma_chains(xs, iters, chains, unroll)
+        ref = fma_kernel.fma_chains_plain(xs, iters, chains, unroll)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+        err = max(err, float((got - ref).abs().max()))
+    log(f"[1b] K2 vs plain on the sweep's inputs at every configuration of "
+        f"{speedlight.FMA_CONFIGS}: within rtol 1e-5, max |err| {err:.3e}")
+    cfg = speedlight.FMA_CONFIGS[1]
+    threads, iters, chains, unroll = cfg
+    xs = torch.full((threads,), 0.7, dtype=torch.float32, device=dev)
+    k_ms, p_ms, ms = in_turns(
+        lambda: fma_kernel.fma_chains(xs, iters, chains, unroll),
+        lambda: fma_kernel.fma_chains_plain(xs, iters, chains, unroll), 5, 1)
+    flops = threads * iters * chains * unroll * 2
+    bound = flops / speedlight.H100_FP32_FLOPS * 1e3
+    log(f"[1b] K2 at (threads, iters, chains, unroll) = {cfg}: kernel "
+        f"{k_ms:.4f} ms ({flops / k_ms / 1e6:.1f} GFLOP/s), plain "
+        f"{p_ms:.4f} ms (k p p k: {', '.join(f'{v:.4f}' for v in ms)}); "
+        f"bound {bound:.4f} ms (operations)")
+    return err, k_ms, p_ms, bound
+
+
+def compare(scene, o, d, cfg, active=None, init=None):
+    """Kernel vs plain on the same inputs; asserts all eight outputs are
+    bit-equal. Returns (kernel result, max abs difference)."""
+    k = march.ResumableResult(*march_kernel.march_resumable_cuda(
+        scene, o, d, cfg, active=active, init=init))
+    p = march.march_resumable_plain(scene, o, d, cfg, active=active,
+                                    init=init)
+    bad = {name: int((a != b).sum()) for name, a, b in zip(FIELDS, k, p)}
+    if any(bad.values()):
+        raise AssertionError(f"lanes differ between kernel and plain march: "
+                             f"{bad}")
+    err = max((float((a - b).abs().max()) for a, b in zip(k, p)
+               if a.dtype.is_floating_point and a.numel()), default=0.0)
+    return k, err
+
+
+def compare_close(scene, o, d, cfg, active=None, init=None):
+    """K1d vs its plain version, held to ``march.assert_march_close``.
+    Returns (kernel result, max |dt| on the lanes held to the tolerance,
+    a note of the lanes it excused, split on hit, or let part in t)."""
+    k = march.ResumableResult(*march_kernel.march_resumable_cuda(
+        scene, o, d, cfg, active=active, init=init))
+    p = march.march_resumable_plain(scene, o, d, cfg, active=active,
+                                    init=init)
+    err, excused, split, apart = march.assert_march_close(
+        scene, o, d, k, p, cfg)
+    marching = int((apart & (k.done == 0) & (p.done == 0)).sum())
+    note = (f"{split} lanes split on hit, {excused} excused (a trip apart "
+            f"or gone from the scene), "
+            f"{int(apart.sum())} grazing lanes apart in t ({marching} of "
+            f"them still marching in both)")
+    return k, err, note
+
+
+def chain(scene, o, d, cfg, total, max_calls, cmp=compare):
+    """Chained budget-B calls (B = ``cfg.max_raymarch``) of kernel and
+    plain, each compared; stops at convergence, after ``total`` trips or
+    after ``max_calls``. Returns (calls, max abs err, lanes unconverged)."""
+    live = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    init, calls, err = None, 0, 0.0
+    for _ in range(min(total // cfg.max_raymarch, max_calls)):
+        k, e = cmp(scene, o, d, cfg, active=live, init=init)[:2]
+        calls, err = calls + 1, max(err, e)
+        live = live & (k.done == 0)
+        init = (k.t, k.w, k.s, k.d)
+        if not bool(live.any()):
+            break
+    return calls, err, int(live.sum())
 
 
 def primaries(cfg, cam):
@@ -229,10 +354,13 @@ def phase_kernel_vs_plain(dev):
 
     # mixed split-march state after 3 plain wavefront steps (on the CPU)
     t0 = time.perf_counter()
+    cpu = torch.device("cpu")
     mo, md, minit, n_flight = mixed_state(
-        cornell.full_scene(), cornell.sky(), cornell.full_camera(), cfg)
-    _, e = compare(scene, mo.to(dev), md.to(dev), mcfg,
-                   init=tuple(v.to(dev) for v in minit))
+        cornell.full_scene(cpu), cornell.sky(cpu), cornell.full_camera(cpu),
+        cfg)
+    mo, md = mo.to(dev), md.to(dev)
+    minit = tuple(v.to(dev) for v in minit)
+    _, e = compare(scene, mo, md, mcfg, init=minit)
     err = max(err, e)
     log(f"[2] mixed state ({n_flight} segments in flight, "
         f"{time.perf_counter() - t0:.1f} s of CPU steps): bit-equal")
@@ -247,14 +375,19 @@ def phase_kernel_vs_plain(dev):
     err = max(err, e)
     log("[2] all-inactive gate and ragged N=230401: bit-equal")
 
-    # time each version on the fresh budget-32 primary march, in turns
-    k_ms, p_ms, ms = in_turns(
-        lambda: march_kernel.march_resumable_cuda(scene, o, d, mcfg),
-        lambda: march.march_resumable_plain(scene, o, d, mcfg))
-    log(f"[2] budget-32 march at {o.shape[0]} lanes: kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms (medians, in turns k p p k: "
-        f"{', '.join(f'{v:.4f}' for v in ms)})")
-    return err, k_ms, p_ms
+    # time each version on the fresh budget-32 primary march and on the
+    # mixed state (the main path's shape), in turns
+    for label, args in (("primaries", (o, d, None)),
+                        ("mixed state", (mo, md, minit))):
+        k_ms, p_ms, ms = in_turns(
+            lambda: march_kernel.march_resumable_cuda(
+                scene, args[0], args[1], mcfg, init=args[2]),
+            lambda: march.march_resumable_plain(scene, args[0], args[1],
+                                                mcfg, init=args[2]))
+        log(f"[2] K1a budget-32 call, {label} at {o.shape[0]} lanes: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (medians, in turns k p p "
+            f"k: {', '.join(f'{v:.4f}' for v in ms)})")
+    return err, k_ms, p_ms, (scene, mo, md, minit, mcfg)
 
 
 def phase_k1c_vs_plain(dev):
@@ -305,7 +438,7 @@ def phase_k1c_vs_plain(dev):
     log(f"[2b] K1c budget-32 call on the mixed state at {mo.shape[0]} "
         f"lanes: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (k p p k: "
         f"{', '.join(f'{v:.4f}' for v in ms)})")
-    return err, k_ms, p_ms
+    return err, k_ms, p_ms, (glass, mo, md, minit, mcfg)
 
 
 def phase_k1b_vs_plain(dev):
@@ -320,7 +453,7 @@ def phase_k1b_vs_plain(dev):
             demo.engine_scene(dev),
             demo.engine_config().replace(escape_bound=True)),
     }
-    err, times = 0.0, {}
+    err, times, states = 0.0, {}, {}
     ro, rd = random_rays(RANDOM_RAYS, 4, (0.0, -0.2, 3.5), 0.2, dev)
     for label, (scene, cfg) in cases.items():
         cfg = cfg.replace(resolution=K1B_RES)
@@ -340,47 +473,85 @@ def phase_k1b_vs_plain(dev):
             lambda: march_kernel.march_resumable_cuda(scene, o, d, mcfg),
             lambda: march.march_resumable_plain(scene, o, d, mcfg), 15, 5)
         times[label] = (k_ms, p_ms)
+        states[label] = (scene, o, d, None, mcfg)
         log(f"[2b] K1b {label}: {calls} chained budget-32 primary calls "
             f"({unconv} unconverged), random rays fresh + gated resume: "
             f"bit-equal; budget-32 call at {o.shape[0]} lanes: kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return err, times
+    return err, times, states
 
 
-def phase_main_path(dev):
-    cfg = main_config()
-    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
-                       cornell.full_camera(dev))
-    state = make_frame_state(cfg.num_pixels, device=dev)
-    steps = cfg.samples_per_frame * cfg.samples_per_pixel
-    march_kernel.reset_launches()
-    t0 = time.perf_counter()
-    px, state = render_frame(scene, env, cam, state, cfg)
-    torch.cuda.synchronize()
-    log(f"[3] first frame: {time.perf_counter() - t0:.2f} s")
-    for _ in range(3):
-        px, state = render_frame(scene, env, cam, state, cfg)
-    torch.cuda.synchronize()
-    c0 = float(state.accum[:, 3].sum())
-    before = march_kernel.LAUNCHES["k1a"]
-    t0 = time.perf_counter()
-    for _ in range(TIMED_FRAMES):
-        px, state = render_frame(scene, env, cam, state, cfg)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    c1 = float(state.accum[:, 3].sum())
-    launches = dict(march_kernel.LAUNCHES)
-    frames = 4 + TIMED_FRAMES
-    if (launches["k1a"] - before != steps * TIMED_FRAMES
-            or launches != {"k1a": steps * frames, "k1b": 0, "k1c": 0}):
-        raise AssertionError(f"expected {steps} K1a launches per frame, "
-                             f"got {launches} over {frames} frames")
-    check_frame(px, c0, c1)
-    msps = (c1 - c0) / dt / 1e6
-    log(f"[3] main path 480x480: {dt / TIMED_FRAMES * 1e3:.3f} ms/frame, "
-        f"{msps:.4f} Msamples/s, {launches['k1a']} K1a launches in "
-        f"{frames} frames")
-    return launches["k1a"], dt / TIMED_FRAMES * 1e3, msps
+def phase_k1d_vs_plain(dev, glass_state):
+    """K1d against its plain version (the matmul-form MLP), its MLP alone
+    against float64, and against K1c."""
+    glass, mo, md, minit, gcfg = glass_state
+    mxu = gcfg.replace(bunny_mxu=True)
+    assert march_kernel.variant(glass, mxu) == "k1d"
+    _, err, note = compare_close(glass, mo, md, mxu, init=minit)
+    log(f"[2c] K1d glass mixed state at {mo.shape[0]} lanes: within the "
+        f"bar; {note}; max |dt| on the rest {err:.3e}")
+
+    metal = bunny.metal_scene(dev)
+    mcfg = bunny.metal_config().replace(resolution=BUNNY_RES)
+    o, d = primaries(mcfg, bunny.camera(mcfg.width / mcfg.height, dev))
+    calls, e, unconv = chain(metal, o, d,
+                             mcfg.replace(max_raymarch=32, bunny_mxu=True),
+                             mcfg.max_raymarch, 4, cmp=compare_close)
+    err = max(err, e)
+    log(f"[2c] K1d metal primaries {BUNNY_RES}: {calls} chained budget-32 "
+        f"calls within the bar, {unconv} lanes still marching")
+    k, e, note = compare_close(
+        metal, o[:-1], d[:-1],
+        mcfg.replace(max_raymarch=32, bunny_mxu=True, escape_bound=True))
+    err = max(err, e)
+    zero = torch.zeros(o.shape[0], dtype=torch.bool, device=dev)
+    k, _, _ = compare_close(metal, o, d, mcfg.replace(max_raymarch=32,
+                                                      bunny_mxu=True),
+                            active=zero)
+    assert int(k.fin.sum()) == 0 and bool((k.done == 1).all())
+    log(f"[2c] K1d escape bound + ragged N={o.shape[0] - 1} ({note}), "
+        f"all-inactive: within the bar")
+
+    # the MLP alone against float64 on the host
+    g = torch.Generator().manual_seed(0)
+    p = torch.randn((MLP_POINTS, 3), generator=g)
+    p = (p / torch.linalg.vector_norm(p, dim=-1, keepdim=True)
+         * torch.rand((MLP_POINTS, 1), generator=g) ** (1 / 3))
+    got = march_kernel.bunny_mlp_mxu(metal, p.to(dev)).cpu().double()
+    mlp64 = BunnyMLP(*(v.cpu().double() for v in metal.bunny))
+    mlp_err = float((got - bunny_mlp_eval(mlp64, p.double())).abs().max())
+    if not mlp_err < 1e-6:
+        raise AssertionError(f"K1d MLP {mlp_err:.3e} from float64 (>= 1e-6)")
+    log(f"[2c] K1d MLP alone on {MLP_POINTS} points in the unit ball: max "
+        f"|err| {mlp_err:.3e} against float64 on the host (bar 1e-6)")
+
+    # K1d vs K1c on the same rays over the full budget (probe_bunny_mxu)
+    r_c = march.march(metal, o, d, mcfg)
+    r_d = march.march(metal, o, d, mcfg.replace(bunny_mxu=True))
+    agree = float((r_c.hit == r_d.hit).float().mean())
+    both = r_c.hit & r_d.hit
+    dt = (r_c.t - r_d.t).abs()[both]
+    log(f"[2c] K1d vs K1c, metal primaries {BUNNY_RES}, 512 trips: hit "
+        f"agree {agree * 100:.4f}%, |dt| on both-hit lanes max "
+        f"{float(dt.max()):.2e} mean {float(dt.mean()):.2e}")
+
+    k_ms, p_ms, ms = in_turns(
+        lambda: march_kernel.march_resumable_cuda(glass, mo, md, mxu,
+                                                  init=minit),
+        lambda: march.march_resumable_plain(glass, mo, md, mxu,
+                                            init=minit), 15, 3)
+    log(f"[2c] K1d budget-32 call on the glass mixed state: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (k p p k: "
+        f"{', '.join(f'{v:.4f}' for v in ms)})")
+    c_ms, d_ms, ms = in_turns(
+        lambda: march_kernel.march_resumable_cuda(glass, mo, md, gcfg,
+                                                  init=minit),
+        lambda: march_kernel.march_resumable_cuda(glass, mo, md, mxu,
+                                                  init=minit))
+    log(f"[2c] K1c vs K1d on the same call, in turns (c d d c: "
+        f"{', '.join(f'{v:.4f}' for v in ms)}): K1c {c_ms:.4f} ms, K1d "
+        f"{d_ms:.4f} ms")
+    return err, k_ms, p_ms
 
 
 def check_frame(px, c0, c1):
@@ -391,55 +562,168 @@ def check_frame(px, c0, c1):
         raise AssertionError("pixels not finite in [0, 1]")
 
 
-def phase_bunny_path(dev):
-    cfg = bunny_config()
-    base = bunny.glass_scene(dev)
-    scene = bunny.animated_scene(base, torch.tensor(12.0, device=dev))
-    env = bunny.glass_environment(device=dev)
-    cam = bunny.camera(cfg.width / cfg.height, dev)
-    state = make_frame_state(cfg.num_pixels, device=dev)
+def run_frames(scene, env, cam, cfg, kind, label):
+    """bench.py's protocol from a fresh state: 1 + 3 warm-up frames, 10
+    timed, ending in a sync; ``kind``'s kernel must launch once a step and
+    no other march kernel at all. Returns (ms/frame, Msamples/s,
+    launches, state)."""
+    state = make_frame_state(cfg.num_pixels, device=scene.device)
     steps = cfg.samples_per_frame * cfg.samples_per_pixel
-    torch.cuda.reset_peak_memory_stats()
     march_kernel.reset_launches()
     t0 = time.perf_counter()
     px, state = render_frame(scene, env, cam, state, cfg)
     torch.cuda.synchronize()
-    log(f"[3b] first frame: {time.perf_counter() - t0:.2f} s")
+    first = time.perf_counter() - t0
     for _ in range(3):
         px, state = render_frame(scene, env, cam, state, cfg)
     torch.cuda.synchronize()
     c0 = float(state.accum[:, 3].sum())
-    before = march_kernel.LAUNCHES["k1c"]
     t0 = time.perf_counter()
     for _ in range(TIMED_FRAMES):
         px, state = render_frame(scene, env, cam, state, cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     c1 = float(state.accum[:, 3].sum())
-    if march_kernel.LAUNCHES["k1c"] - before != steps * TIMED_FRAMES:
-        raise AssertionError(f"expected {steps} K1c launches per frame, "
-                             f"got {march_kernel.LAUNCHES}")
+    launches = dict(march_kernel.LAUNCHES)
+    frames = 4 + TIMED_FRAMES
+    expect = {k: steps * frames if k == kind else 0 for k in launches}
+    if launches != expect:
+        raise AssertionError(f"{label}: expected {steps} {kind} launches per "
+                             f"frame, got {launches} over {frames} frames")
     check_frame(px, c0, c1)
+    ms, msps = dt / TIMED_FRAMES * 1e3, (c1 - c0) / dt / 1e6
+    log(f"{label}: first frame {first:.2f} s; {ms:.3f} ms/frame, "
+        f"{msps:.4f} Msamples/s, {launches[kind]} {kind} launches in "
+        f"{frames} frames")
+    return ms, msps, launches[kind], state
+
+
+def phase_main_path(dev):
+    cfg = main_config()
+    ms, msps, n, _ = run_frames(cornell.full_scene(dev), cornell.sky(dev),
+                                cornell.full_camera(dev), cfg, "k1a",
+                                "[3] main path 480x480")
+    return n, ms, msps
+
+
+def phase_bunny_path(dev):
+    cfg = bunny_config()
+    base = bunny.glass_scene(dev)
+    scene = bunny.animated_scene(base, torch.tensor(12.0, device=dev))
+    env = bunny.glass_environment(device=dev)
+    cam = bunny.camera(cfg.width / cfg.height, dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms, msps, n, state = run_frames(scene, env, cam, cfg, "k1c",
+                                    f"[3b] bunny glass path {cfg.width}x"
+                                    f"{cfg.height}")
     # re-animate on the card (full matrix path, nonzero offset), one frame
     scene13 = bunny.animated_scene(base, torch.tensor(13.0, device=dev))
     assert scene13.rot_perm == (None,)
     assert float(scene13.local_offset.abs().max()) > 0.0
+    c1 = float(state.accum[:, 3].sum())
     px, state = render_frame(scene13, env, cam, state, cfg)
     torch.cuda.synchronize()
-    c2 = float(state.accum[:, 3].sum())
-    check_frame(px, c1, c2)
-    launches = dict(march_kernel.LAUNCHES)
-    frames = 5 + TIMED_FRAMES
-    if launches != {"k1a": 0, "k1b": 0, "k1c": steps * frames}:
-        raise AssertionError(f"expected {steps} K1c launches per frame, "
-                             f"got {launches} over {frames} frames")
-    msps = (c1 - c0) / dt / 1e6
+    check_frame(px, c1, float(state.accum[:, 3].sum()))
+    steps = cfg.samples_per_frame * cfg.samples_per_pixel
+    if march_kernel.LAUNCHES != {"k1a": 0, "k1b": 0, "k1c": n + steps,
+                                 "k1d": 0}:
+        raise AssertionError(f"frame 13: {march_kernel.LAUNCHES}")
     mem = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[3b] bunny glass path {cfg.width}x{cfg.height}: "
-        f"{dt / TIMED_FRAMES * 1e3:.3f} ms/frame, {msps:.4f} Msamples/s, "
-        f"{launches['k1c']} K1c launches in {frames} frames (frame 13 "
-        f"re-animated), peak device memory {mem:.2f} GiB")
-    return launches["k1c"], dt / TIMED_FRAMES * 1e3, msps
+    log(f"[3b] frame 13 re-animated on the card: {steps} more K1c "
+        f"launches; peak device memory {mem:.2f} GiB")
+    return n + steps, ms, msps
+
+
+def device_profile(fn, frames):
+    """One torch.profiler window of ``frames`` calls of fn: the card's busy
+    ms per frame (the union of its kernel intervals) and the five kernels
+    with the most device time per frame, or None when the profiler saw no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy, cur_s = busy + cur_e - cur_s, s
+            cur_e = e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    by_name = {}
+    for e in events:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return busy / 1e3 / frames, [(n[:60], us / 1e3 / frames)
+                                 for n, us in top]
+
+
+def phase_metal_path(dev):
+    """The metal bunny at 3840x2160 with bunny_mxu off (K1c) and on (K1d),
+    in turns off, on, on, off."""
+    cfg = metal_config()
+    scene = bunny.metal_scene(dev)
+    env = bunny.glass_environment(device=dev)
+    cam = bunny.camera(16 / 9, dev)
+    out = {False: [], True: []}
+    for mxu in (False, True, True, False):
+        kind = "k1d" if mxu else "k1c"
+        torch.cuda.reset_peak_memory_stats()
+        ms, msps, n, state = run_frames(
+            scene, env, cam, cfg.replace(bunny_mxu=mxu), kind,
+            f"[3c] metal 4K bunny_mxu={mxu}")
+        out[mxu].append((ms, msps, n, torch.cuda.max_memory_allocated()
+                         / 2**30))
+    for mxu in (False, True):
+        c = cfg.replace(bunny_mxu=mxu)
+        st = [state]
+
+        def frame():
+            _, st[0] = render_frame(scene, env, cam, st[0], c)
+        frame()
+        prof = device_profile(frame, 3)
+        ms = statistics.mean(v[0] for v in out[mxu])
+        idle = "not measured (the profiler saw no device activity)"
+        if prof is not None:
+            busy, top = prof
+            idle = (f"{busy:.3f} ms/frame busy, idle share "
+                    f"{max(0.0, 1 - busy / ms) * 100:.1f}% of {ms:.3f} "
+                    f"ms/frame; most device ms/frame: " + "; ".join(
+                        f"{n} {v:.3f}" for n, v in top))
+        runs = "; ".join(f"{a:.3f} ms/frame, {b:.4f} Msamples/s, peak "
+                         f"{m:.2f} GiB" for a, b, _, m in out[mxu])
+        log(f"[3c] metal 4K bunny_mxu={mxu}: {runs}; device {idle}")
+    mean = lambda mxu, j: statistics.mean(v[j] for v in out[mxu])
+    log(f"[3c] metal 4K, mean of two runs each: K1c {mean(False, 0):.3f} "
+        f"ms/frame ({mean(False, 1):.4f} Msamples/s), K1d "
+        f"{mean(True, 0):.3f} ms/frame ({mean(True, 1):.4f} Msamples/s)")
+    return out[True][0][2], out, (scene, env, cam, cfg)
+
+
+def phase_metal_state_vs_plain(scene, env, cam, cfg):
+    """K1c (bit-equal) and K1d (the march bar) against the plain march on
+    the metal path's own budget-32 call at 3840x2160, on its state where
+    the timed frames start: after the 4 warm-up frames' 16 steps. Returns
+    (that state, K1c's and K1d's max abs errors)."""
+    mo, md, minit, _ = mixed_state(scene, env, cam, cfg, steps=16)
+    cfg = cfg.replace(max_raymarch=cfg.march_split)
+    _, err_c = compare(scene, mo, md, cfg, init=minit)
+    _, err_d, note = compare_close(
+        scene, mo, md, cfg.replace(bunny_mxu=True), init=minit)
+    log(f"[3d] metal state at {mo.shape[0]} lanes, 16 steps in: K1c "
+        f"bit-equal; K1d within the bar ({note}; max |dt| on the rest "
+        f"{err_d:.3e})")
+    return (scene, mo, md, minit, cfg), err_c, err_d
 
 
 def score_golden(img, path, label):
@@ -473,7 +757,8 @@ def phase_golden_demo(dev):
         demo.scene_demo_scene(dev), demo.gradient_environment(dev),
         demo.engine_camera(dev), cfg, spp=6, exposure=1.0)
     launches = dict(march_kernel.LAUNCHES)
-    if not (launches["k1b"] > 0 and launches["k1a"] == launches["k1c"] == 0):
+    if not (launches["k1b"] > 0 and launches["k1a"] == launches["k1c"]
+            == launches["k1d"] == 0):
         raise AssertionError(f"the scene_demo path did not run K1b alone: "
                              f"{launches}")
     db = score_golden(img, GOLDEN_DEMO, "wavefront_scene_demo")
@@ -482,30 +767,108 @@ def phase_golden_demo(dev):
     return launches["k1b"]
 
 
+def report(label, u):
+    log(f"[5] {label}: {u['march_ms']:.4f} ms; lane-trips needed "
+        f"{u['lane_iters_needed']}, warp-executed {u['lane_iters_executed']}"
+        f" (divergence tax {u['divergence_tax_pct']:.1f}%), inside the "
+        f"bunny's sphere {u['support_lane_iters']} (warps running the MLP: "
+        f"{u['mlp_warp_lane_iters']}); {u['flops_per_iter']} flops/iter; "
+        f"{u['flops']:.4e} flops ({u['tensor_core_flops']:.4e} on tensor "
+        f"cores), {u['bytes']} bytes; {u['achieved_gflops']:.1f} GFLOP/s = "
+        f"{u['utilization_pct']:.2f}% of K2's roof, {u['fp32_peak_pct']:.2f}%"
+        f" of 67 TFLOP/s; bound {u['bound_ms']:.4f} ms ({u['bound_by']}), "
+        f"{u['bound_share_pct']:.2f}% of the time")
+
+
+def phase_utilization(dev, states):
+    """bench.py's utilization extra, then each kernel's budget-32 state.
+    The one K2 sweep here is the one ``march_utilization`` reads its roof
+    from (``speedlight.fma_sweep`` measures once a process)."""
+    march_kernel.reset_launches()
+    fma_kernel.reset_launches()
+    speedlight.fma_sweep.cache_clear()
+    sweep = speedlight.fma_sweep()
+    for c, f in sweep.items():
+        log(f"[5] K2 (threads, iters, chains, unroll) = {c}: "
+            f"{f / 1e9:.1f} GFLOP/s")
+    roof = speedlight.measure_vpu_peak()
+    log(f"[5] K2 FP32 FFMA roof {roof / 1e9:.1f} GFLOP/s = "
+        f"{roof / speedlight.H100_FP32_FLOPS * 100:.2f}% of the published "
+        f"67 TFLOP/s, on {card_line()}")
+    cfg = cornell.full_config()
+    o, d = primaries(cfg, cornell.full_camera(dev))
+    report("bench.py's Cornell march, 480x480 primaries, 512 trips, K1a",
+           speedlight.march_utilization(cornell.full_scene(dev), o, d, cfg))
+    bounds = {}
+    for name, label in (("k1a", "Cornell mixed state"),
+                        ("k1b", "scene_demo 768x432 primaries"),
+                        ("k1c", "glass mixed state 1920x1080"),
+                        ("k1d", "glass mixed state 1920x1080"),
+                        ("k1c metal", "metal state 3840x2160, 16 steps"),
+                        ("k1d metal", "metal state 3840x2160, 16 steps")):
+        scene, so, sd, sinit, scfg = states[name]
+        u = speedlight.march_utilization(scene, so, sd, scfg, init=sinit)
+        report(f"{name.split()[0].upper()} budget-32, {label}", u)
+        bounds[name] = u
+    launches = {**march_kernel.LAUNCHES, **fma_kernel.LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the utilization path did not "
+                             f"launch: {launches}")
+    log(f"[5] launches in the utilization path: {launches}")
+    return launches["k2"], roof, bounds
+
+
 def main():
     dev = phase_device()
     build_s = phase_build()
-    err_a, ka_ms, pa_ms = phase_kernel_vs_plain(dev)
-    err_c, kc_ms, pc_ms = phase_k1c_vs_plain(dev)
-    err_b, times_b = phase_k1b_vs_plain(dev)
+    err_2, k2_ms, k2_plain, k2_bound = phase_k2(dev)
+    err_a, ka_ms, pa_ms, cornell_state = phase_kernel_vs_plain(dev)
+    err_c, kc_ms, pc_ms, glass_state = phase_k1c_vs_plain(dev)
+    err_b, times_b, states_b = phase_k1b_vs_plain(dev)
+    err_d, kd_ms, pd_ms = phase_k1d_vs_plain(dev, glass_state)
     launch_a, ms_frame, msps = phase_main_path(dev)
     launch_c, ms_frame_c, msps_c = phase_bunny_path(dev)
+    launch_d, metal, metal_path = phase_metal_path(dev)
+    mstate, e_c, e_d = phase_metal_state_vs_plain(*metal_path)
+    err_c, err_d = max(err_c, e_c), max(err_d, e_d)
     phase_golden(dev)
     launch_b = phase_golden_demo(dev)
-    kb_ms, pb_ms = times_b["scene_demo (ROLLBACK_TO_ONE + RELATIVE)"]
-    log(f"[5] summary: build {build_s:.2f} s; K1a {ka_ms:.4f} ms vs plain "
-        f"{pa_ms:.4f} ms per budget-32 march; Cornell {ms_frame:.3f} "
-        f"ms/frame, {msps:.4f} Msamples/s; bunny glass {ms_frame_c:.3f} "
-        f"ms/frame, {msps_c:.4f} Msamples/s; K1c {kc_ms:.4f} ms vs plain "
-        f"{pc_ms:.4f} ms")
-    entry = lambda name, line, n, err, k, p: {
-        "name": name, "route": "cuda", "source": SOURCE,
-        "replaces": f"{TPU_KERNEL}:{line}", "launches": n,
-        "max_abs_err": err, "ms": k, "plain_ms": p}
+    demo_label = "scene_demo (ROLLBACK_TO_ONE + RELATIVE)"
+    kb_ms, pb_ms = times_b[demo_label]
+
+    glass, go, gd, ginit, gcfg = glass_state
+    states = {"k1a": cornell_state, "k1b": states_b[demo_label],
+              "k1c": glass_state,
+              "k1d": (glass, go, gd, ginit, gcfg.replace(bunny_mxu=True)),
+              "k1c metal": mstate,
+              "k1d metal": mstate[:4] + (mstate[4].replace(bunny_mxu=True),)}
+    launch_2, roof, bounds = phase_utilization(dev, states)
+
+    log(f"[6] summary: build {build_s:.2f} s; K2 roof {roof / 1e9:.1f} "
+        f"GFLOP/s; Cornell {ms_frame:.3f} ms/frame, {msps:.4f} Msamples/s; "
+        f"bunny glass {ms_frame_c:.3f} ms/frame, {msps_c:.4f} Msamples/s; "
+        f"metal 4K K1c {metal[False][0][0]:.3f} / K1d {metal[True][0][0]:.3f}"
+        f" ms/frame; per budget-32 call: K1a {ka_ms:.4f}, K1b {kb_ms:.4f}, "
+        f"K1c {kc_ms:.4f}, K1d {kd_ms:.4f} ms")
+    entry = lambda name, source, line, n, err, k, p, b: {
+        "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
+        "replaces": line, "launches": n, "max_abs_err": err, "ms": k,
+        "plain_ms": p, "bound_ms": b[0], "bound_by": b[1],
+        # no single PyTorch call computes a sphere trace or an FMA chain
+        "library_ms": None}
+    bound = lambda k: (bounds[k]["bound_ms"], bounds[k]["bound_by"])
     log(json.dumps({"kernels": [
-        entry("march_k1a", 297, launch_a, err_a, ka_ms, pa_ms),
-        entry("march_k1b", 338, launch_b, err_b, kb_ms, pb_ms),
-        entry("march_k1c", 156, launch_c, err_c, kc_ms, pc_ms)]}))
+        entry("march_k1a", "march.cu", f"{TPU_KERNEL}:297", launch_a, err_a,
+              ka_ms, pa_ms, bound("k1a")),
+        entry("march_k1b", "march.cu", f"{TPU_KERNEL}:338", launch_b, err_b,
+              kb_ms, pb_ms, bound("k1b")),
+        entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156", launch_c, err_c,
+              kc_ms, pc_ms, bound("k1c")),
+        entry("march_k1d", "march_mxu.cu", f"{TPU_KERNEL}:124", launch_d,
+              err_d, kd_ms, pd_ms, bound("k1d")),
+        entry("fma_chains_k2", "speedlight.cu",
+              "raytracingpbr_tpu/utils/speedlight.py:94", launch_2, err_2,
+              k2_ms, k2_plain, (k2_bound, "operations"))]}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

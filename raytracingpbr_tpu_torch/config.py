@@ -52,10 +52,12 @@ class RenderConfig:
     """Static render parameters; field for field the JAX ``RenderConfig``.
 
     Fields the port does not act on yet are kept so that configs convert
-    one to one: ``march_chunk``, ``march_tile_rows``, ``march_compaction``,
-    ``march_phases`` and ``bunny_mxu`` are TPU kernel knobs with no
-    counterpart here (the CUDA march has one thread per lane and exits per
-    lane); ``env_sampling`` and ``reprojection`` raise in the integrator.
+    one to one: ``march_chunk``, ``march_tile_rows`` and ``march_phases``
+    are TPU kernel knobs with no counterpart here (the CUDA march has one
+    thread per lane and exits per lane, or per warp in K1d), accepted and
+    ignored; ``env_sampling`` and ``reprojection`` raise in the integrator
+    and ``march_compaction`` in ``utils/speedlight``. ``bunny_mxu`` selects
+    the tensor-core bunny march K1d.
     """
 
     resolution: Tuple[int, int] = (768, 432)  # (W, H)

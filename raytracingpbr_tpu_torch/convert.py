@@ -3,7 +3,8 @@
 The JAX objects are read by attribute and ``np.asarray``-ed, so this module
 needs no jax import: it works on any object with the JAX package's field
 names. Static metadata (shape types, buckets, ``rot_perm``) is copied as it
-is, and tensors keep their exact values.
+is, and tensors keep their exact values. Like every constructor of the
+port, the converters build on the card unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -14,13 +15,14 @@ import numpy as np
 import torch
 
 from . import config as cfglib
+from .core.device import resolve
 from .core.types import Camera, FrameState, Rays
 from .ops.ibl import Environment
 from .ops.scene import _BUFFERS, Scene
 from .ops.sdf import BunnyMLP
 
 
-def _t(x, device=None, dtype=None) -> torch.Tensor:
+def _t(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device, dtype=dtype)
 
 
@@ -41,6 +43,7 @@ def config_from_jax(cfg) -> cfglib.RenderConfig:
 
 
 def scene_from_jax(scene, device=None) -> Scene:
+    device = resolve(device)
     jb = getattr(scene, "bunny", None)
     bunny = None if jb is None else BunnyMLP(
         *(_t(getattr(jb, k), device) for k in BunnyMLP._fields))
@@ -50,11 +53,13 @@ def scene_from_jax(scene, device=None) -> Scene:
 
 
 def camera_from_jax(cam, device=None) -> Camera:
+    device = resolve(device)
     return Camera(*(_t(getattr(cam, f.name), device)
                     for f in dataclasses.fields(Camera)))
 
 
 def environment_from_jax(env, device=None) -> Environment:
+    device = resolve(device)
     return Environment(kind=str(env.kind), bilinear=bool(env.bilinear),
                        image=_opt(env.image, device),
                        scale=_t(env.scale, device),
@@ -63,6 +68,7 @@ def environment_from_jax(env, device=None) -> Environment:
 
 
 def rays_from_jax(rays, device=None) -> Rays:
+    device = resolve(device)
     return Rays(_t(rays.origin, device), _t(rays.direction, device),
                 _t(rays.color, device), _t(rays.depth, device, torch.int32))
 
@@ -70,6 +76,7 @@ def rays_from_jax(rays, device=None) -> Rays:
 def frame_state_from_jax(state, device=None) -> FrameState:
     """A JAX ``FrameState`` -> the port's. ``frame`` and the uint32
     ``respawn`` counter become int64."""
+    device = resolve(device)
     return FrameState(
         rays=rays_from_jax(state.rays, device),
         accum=_t(state.accum, device),

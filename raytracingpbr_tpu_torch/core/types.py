@@ -2,8 +2,8 @@
 ``raytracingpbr_tpu/core/types.py``).
 
 Each type is a dataclass of tensors in struct-of-arrays layout: a batch of
-rays is one ``Rays`` whose members are ``(N, 3)`` / ``(N,)``. Makers take an
-explicit ``device``.
+rays is one ``Rays`` whose members are ``(N, 3)`` / ``(N,)``. Makers build
+on the card unless given ``device="cpu"`` (``core/device.resolve``).
 
 Integer widths: ``depth`` and ``march_cum`` are int32 as in JAX. The JAX
 package's uint32 ``respawn`` counter is int64 here (PyTorch's uint32
@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from .device import resolve
 
 # FrameState.hit_t sentinel: no surface recorded for this pixel yet
 NO_HIT_T = 1e10
@@ -31,6 +33,7 @@ class Rays:
 
 
 def make_rays(n: int, device=None, dtype=torch.float32) -> Rays:
+    device = resolve(device)
     z3 = lambda: torch.zeros((n, 3), dtype=dtype, device=device)
     return Rays(z3(), z3(), z3(),
                 torch.zeros((n,), dtype=torch.int32, device=device))
@@ -53,6 +56,7 @@ def make_camera(lookfrom=(0.0, -0.2, 4.0), lookat=(0.0, -0.2, 3.0),
                 vup=(0.0, 1.0, 0.0), vfov=35.0, aspect=16.0 / 9.0,
                 aperture=0.01, focus=4.0, device=None,
                 dtype=torch.float32) -> Camera:
+    device = resolve(device)
     f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return Camera(f(lookfrom), f(lookat), f(vup), f(vfov), f(aspect),
                   f(aperture), f(focus))
@@ -91,6 +95,7 @@ class FrameState:
 def make_frame_state(n: int, device=None,
                      dtype=torch.float32) -> FrameState:
     """Fresh state (the reference's ``refresh()``)."""
+    device = resolve(device)
     kw = dict(dtype=dtype, device=device)
     return FrameState(
         rays=make_rays(n, device, dtype),

@@ -34,81 +34,18 @@
 // MLP branch) within a warp. The MLP keeps 32 activations per lane live in
 // registers.
 //
-// Numerics: built with -fmad=false and without fast math, every add and
-// multiply rounds on its own, sqrtf and the division are IEEE and sinf is
-// libdevice's full-range sinf, as PyTorch's elementwise CUDA ops do. The
-// expression order follows ops/sdf.py, ops/scene.py and ops/march.py (the
-// bunny as sdf.bunny_mlp_eval_unrolled), and every constant the plain march
-// takes from a Python float arrives here already rounded to f32, so the
-// kernel and the plain PyTorch march agree bit for bit on the card.
+// Numerics (march_common.cuh): every add and multiply rounds on its own and
+// sinf is libdevice's full-range sinf, as PyTorch's elementwise CUDA ops
+// do; the bunny follows sdf.bunny_mlp_eval_unrolled's order, so the kernel
+// and the plain PyTorch march agree bit for bit on the card.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "march_common.cuh"
 
 namespace {
 
-constexpr int kParamStride = 32;  // floats per object in the packed block
-constexpr int kParamUsed = 18;    // pos(3) scale(3) matrix(9) offset(3)
-constexpr int kBoundCol = 18;     // bound^2, row 0, when the bound is on
-constexpr int kMaxObjects = 128;
+using namespace rt;
+
 constexpr int kBunnyWeights = 40 * 16;  // kernels/march_kernel.pack_bunny
-
-// Shape ids of ops/sdf.SHAPE.
-constexpr int kNone = 0, kSphere = 1, kBox = 2, kCylinder = 3, kCone = 4,
-              kPlane = 5, kBunny = 6;
-// config.OmegaPolicy and config.HitCriterion, as the wrapper numbers them.
-constexpr int kConstant = 0, kRollbackToOne = 1, kRollbackHalfUp = 2;
-constexpr int kAbsolute = 0, kRelative = 1, kConeHit = 2;
-
-struct MarchArgs {
-  const float* params;  // (n_obj, 32)
-  const int* types;     // (n_obj,)
-  const float* bunny;   // (40, 16) or null
-  int n_obj;
-  float box_round;
-  const float* origin;     // (n, 3)
-  const float* direction;  // (n, 3)
-  const uint8_t* active;   // (n,) or null
-  const float *init_t, *init_w, *init_s, *init_d;  // (n,) each, or null
-  float t0, w0, hit_precision, max_dis, pixel_radius, one_eps;
-  int budget, n;
-  float* t_out;
-  int* idx_out;
-  uint8_t* hit_out;
-  int* fin_out;
-  float *w_out, *s_out, *d_out;
-  int* done_out;
-};
-
-__device__ __forceinline__ float sd_shape(int type, float px, float py,
-                                          float pz, float sx, float sy,
-                                          float sz, float box_round) {
-  switch (type) {
-    case kSphere:
-      return sqrtf(px * px + py * py + pz * pz) - sx;
-    case kBox: {
-      float qx = fabsf(px) - sx, qy = fabsf(py) - sy, qz = fabsf(pz) - sz;
-      float ox = fmaxf(qx, 0.0f), oy = fmaxf(qy, 0.0f), oz = fmaxf(qz, 0.0f);
-      float outside = sqrtf(ox * ox + oy * oy + oz * oz);
-      float inside = fminf(fmaxf(qx, fmaxf(qy, qz)), 0.0f);
-      return outside + inside - box_round;
-    }
-    case kCylinder: {
-      float dx = fabsf(sqrtf(px * px + pz * pz)) - sx;
-      float dy = fabsf(py) - sy;
-      float mx = fmaxf(dx, 0.0f), my = fmaxf(dy, 0.0f);
-      return fminf(fmaxf(dx, dy), 0.0f) + sqrtf(mx * mx + my * my);
-    }
-    case kCone: {
-      float q = sqrtf(px * px + pz * pz);
-      return fmaxf(sx * q + sz * py, -sy - py);
-    }
-    case kPlane:
-      return py - sy;
-    default:  // kNone
-      return 1e3f;
-  }
-}
 
 // The bunny SDF in local coordinates; w is the (40, 16) block of
 // pack_bunny: rows 0-2 w_in, 3 b_in, 4-19 w_h1, 20 b_h1, 21-36 w_h2,
@@ -148,10 +85,7 @@ __global__ void march_kernel(const MarchArgs a) {
   __shared__ float sp[kMaxObjects * kParamUsed];
   __shared__ int st[kMaxObjects];
   __shared__ float sw[BUNNY ? kBunnyWeights : 1];
-  for (int k = threadIdx.x; k < a.n_obj * kParamUsed; k += blockDim.x) {
-    sp[k] = a.params[(k / kParamUsed) * kParamStride + k % kParamUsed];
-  }
-  for (int k = threadIdx.x; k < a.n_obj; k += blockDim.x) st[k] = a.types[k];
+  stage_scene(a, sp, st);
   if (BUNNY) {
     for (int k = threadIdx.x; k < kBunnyWeights; k += blockDim.x) {
       sw[k] = a.bunny[k];
@@ -163,29 +97,16 @@ __global__ void march_kernel(const MarchArgs a) {
   if (lane >= a.n) return;
 
   const float bound2 = BOUND ? a.params[kBoundCol] : 0.0f;
-  const float ox = a.origin[3 * lane], oy = a.origin[3 * lane + 1],
-              oz = a.origin[3 * lane + 2];
-  const float dx = a.direction[3 * lane], dy = a.direction[3 * lane + 1],
-              dz = a.direction[3 * lane + 2];
-  float t = a.init_t ? a.init_t[lane] : a.t0;
-  float w = a.init_w ? a.init_w[lane] : a.w0;
-  float s = a.init_s ? a.init_s[lane] : 0.0f;
-  float d = a.init_d ? a.init_d[lane] : 1e3f;
-  int idx = 0;
-  uint8_t hit = 0;
-  bool done = a.active ? a.active[lane] == 0 : false;
-  int fin = done ? 0 : a.budget;
-
-  for (int i = 0; i < a.budget && !done; ++i) {
-    const float x = ox + t * dx, y = oy + t * dy, z = oz + t * dz;
+  Lane L = load_lane(a, lane);
+  for (int i = 0; i < a.budget && !L.done; ++i) {
+    const float x = L.ox + L.t * L.dx, y = L.oy + L.t * L.dy,
+                z = L.oz + L.t * L.dz;
     float best = 1e3f;  // running min of |sd|: first object wins ties
     int best_i = 0;
     for (int o = 0; o < a.n_obj; ++o) {
       const float* pr = sp + o * kParamUsed;
-      const float tx = x - pr[0], ty = y - pr[1], tz = z - pr[2];
-      const float px = pr[6] * tx + pr[7] * ty + pr[8] * tz + pr[15];
-      const float py = pr[9] * tx + pr[10] * ty + pr[11] * tz + pr[16];
-      const float pz = pr[12] * tx + pr[13] * ty + pr[14] * tz + pr[17];
+      float px, py, pz;
+      to_local(pr, x, y, z, px, py, pz);
       const float dist =
           (BUNNY && st[o] == kBunny)
               ? fabsf(sd_bunny(sw, px, py, pz))
@@ -196,101 +117,30 @@ __global__ void march_kernel(const MarchArgs a) {
         best_i = o;
       }
     }
+    advance<POLICY, CRIT, BOUND>(L, a, bound2, x, y, z, best, best_i, i);
+  }
+  store_lane(a, lane, L);
+}
 
-    bool rollback = false;
-    float w_next = w;
-    if (POLICY != kConstant) {
-      // relative epsilon: exactly touching bounds (d + dist == s) must
-      // roll back or the ray tunnels
-      rollback = d + best < s * a.one_eps;
-      if (POLICY == kRollbackToOne) {
-        rollback = rollback && (w > 1.0f);
-        w_next = rollback ? 1.0f : w;
-      } else {  // kRollbackHalfUp
-        w_next = rollback ? 0.5f + 0.5f * w : w;
-      }
-    }
-    const float s_rb = s * (1.0f - w);
-    const float s_fwd = w_next * best;
-
-    bool hit_now;
-    if (CRIT == kConeHit) {
-      hit_now = best < (t + s_fwd) * a.pixel_radius;
-    } else if (CRIT == kRelative) {
-      hit_now = best / fmaxf(t, (float)1e-12) < a.pixel_radius;
+// K1a/K1b on a scene without the bunny (a.bunny null), K1c with it.
+struct Launch {
+  template <int P, int C, bool B>
+  static int launch(const MarchArgs& a, int block, cudaStream_t s) {
+    const int grid = (a.n + block - 1) / block;
+    if (a.bunny) {
+      march_kernel<P, C, B, true><<<grid, block, 0, s>>>(a);
     } else {
-      hit_now = best < a.hit_precision;
+      march_kernel<P, C, B, false><<<grid, block, 0, s>>>(a);
     }
-
-    const float step = rollback ? s_rb : s_fwd;
-    t = t + step;
-    w = w_next;
-    s = step;
-    d = best;
-    idx = best_i;
-    if (!rollback) {
-      hit = hit_now;
-      bool escaped = t >= a.max_dis;
-      if (BOUND) {
-        // outside the scene's bounding sphere and receding: no hit ahead
-        escaped = escaped || ((x * x + y * y + z * z > bound2) &&
-                              (x * dx + y * dy + z * dz > 0.0f));
-      }
-      if (hit_now || escaped) {
-        done = true;
-        fin = i + 1;
-      }
-    }
+    return (int)cudaGetLastError();
   }
-
-  a.t_out[lane] = t;
-  a.idx_out[lane] = idx;
-  a.hit_out[lane] = hit;
-  a.fin_out[lane] = fin;
-  a.w_out[lane] = w;
-  a.s_out[lane] = s;
-  a.d_out[lane] = d;
-  a.done_out[lane] = done ? 1 : 0;
-}
-
-template <int P, int C, bool B, bool U>
-int launch(const MarchArgs& a, int block, cudaStream_t stream) {
-  const int grid = (a.n + block - 1) / block;
-  march_kernel<P, C, B, U><<<grid, block, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <int P, int C>
-int dispatch_bound_bunny(const MarchArgs& a, bool bound, bool bunny,
-                         int block, cudaStream_t s) {
-  if (bunny) {
-    return bound ? launch<P, C, true, true>(a, block, s)
-                 : launch<P, C, false, true>(a, block, s);
-  }
-  return bound ? launch<P, C, true, false>(a, block, s)
-               : launch<P, C, false, false>(a, block, s);
-}
-
-template <int P>
-int dispatch_crit(const MarchArgs& a, int crit, bool bound, bool bunny,
-                  int block, cudaStream_t s) {
-  switch (crit) {
-    case kAbsolute:
-      return dispatch_bound_bunny<P, kAbsolute>(a, bound, bunny, block, s);
-    case kRelative:
-      return dispatch_bound_bunny<P, kRelative>(a, bound, bunny, block, s);
-    case kConeHit:
-      return dispatch_bound_bunny<P, kConeHit>(a, bound, bunny, block, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
+};
 
 }  // namespace
 
 extern "C" {
 
-int rt_march_max_objects() { return kMaxObjects; }
+int rt_march_max_objects() { return rt::kMaxObjects; }
 
 // Launches the march variant (policy, crit, has_bound, bunny given) on
 // `stream` and returns cudaGetLastError(). Optional inputs (active, the
@@ -299,37 +149,8 @@ int rt_march_max_objects() { return kMaxObjects; }
 // bound^2 in row 0 column 18 when has_bound, types (n_obj,) i32, bunny
 // (40, 16) f32, origin and direction (n, 3) f32, active (n,) bool, init
 // (n,) f32; outputs (n,).
-int rt_march(const float* params, const int* types, const float* bunny,
-             int n_obj, float box_round, const float* origin,
-             const float* direction, const uint8_t* active,
-             const float* init_t, const float* init_w, const float* init_s,
-             const float* init_d, float t0, float w0, float hit_precision,
-             float max_dis, float pixel_radius, float one_eps, int policy,
-             int crit, int has_bound, int budget, int n, float* t_out,
-             int* idx_out, uint8_t* hit_out, int* fin_out, float* w_out,
-             float* s_out, float* d_out, int* done_out, int block,
-             void* stream) {
-  if (n <= 0) return 0;
-  if (n_obj < 0 || n_obj > kMaxObjects) return (int)cudaErrorInvalidValue;
-  const MarchArgs a{params, types, bunny, n_obj, box_round, origin,
-                    direction, active, init_t, init_w, init_s, init_d,
-                    t0, w0, hit_precision, max_dis, pixel_radius, one_eps,
-                    budget, n, t_out, idx_out, hit_out, fin_out, w_out,
-                    s_out, d_out, done_out};
-  const bool bound = has_bound != 0, has_bunny = bunny != nullptr;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (policy) {
-    case kConstant:
-      return dispatch_crit<kConstant>(a, crit, bound, has_bunny, block, s);
-    case kRollbackToOne:
-      return dispatch_crit<kRollbackToOne>(a, crit, bound, has_bunny, block,
-                                           s);
-    case kRollbackHalfUp:
-      return dispatch_crit<kRollbackHalfUp>(a, crit, bound, has_bunny,
-                                            block, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+int rt_march(RT_MARCH_PARAMS) {
+  return rt::march_entry<Launch>(RT_MARCH_ARGS);
 }
 
 }  // extern "C"

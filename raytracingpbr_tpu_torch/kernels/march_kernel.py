@@ -1,72 +1,64 @@
-"""Hand-written CUDA march kernels K1a, K1b and K1c (``csrc/march.cu``)
-and their wrapper.
+"""Hand-written CUDA march kernels K1a, K1b, K1c (``csrc/march.cu``) and
+K1d (``csrc/march_mxu.cu``), and their wrapper.
 
 They replace the Pallas TPU kernel
-``raytracingpbr_tpu/pallas/march_kernel.py::_march_kernel``; one CUDA
-template serves every variant, named here by what it adds:
+``raytracingpbr_tpu/pallas/march_kernel.py::_march_kernel``; each variant
+is named here by what it adds:
 
 - ``k1a``: CONSTANT omega, ABSOLUTE hit test, no escape bound, analytic
   shapes (the Cornell wavefront's march);
 - ``k1b``: the ROLLBACK_TO_ONE / ROLLBACK_HALF_UP policies, the CONE /
   RELATIVE hit tests and the escape bound, on analytic shapes;
 - ``k1c``: any of those on a scene with the neural bunny (the MLP of
-  ``_bunny_tile``, weights packed by :func:`pack_bunny`).
+  ``_bunny_tile`` as FP32 chains, weights packed by :func:`pack_bunny`);
+- ``k1d``: the same with ``cfg.bunny_mxu``: the MLP's 16 x 16 layers on
+  the tensor cores (``_bunny_tile_mxu``; weights packed by
+  :func:`pack_bunny_mxu`).
 
 All have the active gate and the resume from ``(t, w, s, d)``.
 
-What bounds them on an H100: FP32 ALU work (about 25 flops per analytic
-object per lane-trip; about 1,300 flops and 48 sinf for a bunny lane inside
-the unit sphere), while a lane reads about 40 bytes once. The design
-answers that with one thread per lane and a per-lane loop exit, the scene
-and the MLP weights staged once per block in shared memory, and the MLP run
-per lane only inside its support.
+What bounds them on an H100: FP32 issue (about 25 flops per analytic
+object per lane-trip; about 1,250 flops and 48 sinf for a bunny lane inside
+the unit sphere), while a lane reads about 41 bytes and writes 29 once
+(``utils/speedlight.march_bound``). K1a-K1c answer with one thread per
+lane and a per-lane loop exit, the scene and the MLP weights staged once
+per block in shared memory, and the MLP run per lane only inside its
+support; K1d marches a warp in lock step and moves the MLP's contractions
+to ``mma.sync``.
 
 The plain PyTorch version is ``ops/march.march_resumable_plain``;
 ``ops/march.march_resumable`` sends CPU tensors there and CUDA tensors here.
 This wrapper never falls back: a CUDA tensor is marched by a kernel, or the
-call raises, naming the kernel that would serve it (``cfg.bunny_mxu`` is
-K1d, not ported).
-
-Build: ``nvcc`` (a plain C interface bound with ctypes) at first use, into
-``build/raytracingpbr_tpu_torch/`` under the checkout, named after a hash of
-the source and flags so a stale build is never loaded. The flags keep
-``-fmad=false`` and no fast math, so kernel and plain version agree bit for
-bit on the card.
+call raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import HitCriterion, OmegaPolicy, RenderConfig
 from ..ops import scene as scenelib
 from ..ops.sdf import SHAPE
+from . import build
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "march.cu"
-BUILD_DIR = (Path(__file__).resolve().parent.parent.parent / "build"
-             / "raytracingpbr_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 BLOCK = 256
 
 # Kernel launches made by march_resumable_cuda, per variant: plain
 # counters that a run resets and reads to show which path it went through.
-LAUNCHES = {"k1a": 0, "k1b": 0, "k1c": 0}
+LAUNCHES = {"k1a": 0, "k1b": 0, "k1c": 0, "k1d": 0}
 
 _POLICY = {OmegaPolicy.CONSTANT: 0, OmegaPolicy.ROLLBACK_TO_ONE: 1,
            OmegaPolicy.ROLLBACK_HALF_UP: 2}
 _CRIT = {HitCriterion.ABSOLUTE: 0, HitCriterion.RELATIVE: 1,
          HitCriterion.CONE: 2}
+# the library of each variant (csrc/<source>.cu)
+_SOURCE = {"k1a": "march", "k1b": "march", "k1c": "march",
+           "k1d": "march_mxu"}
 
-_lib = None
+_libs = {}
 
 
 def reset_launches() -> None:
@@ -74,57 +66,24 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def nvcc_path() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA march "
-                       "kernel is built from csrc/march.cu at first use")
-
-
-def library_path() -> Path:
-    """Where the built library for this source and these flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libmarch_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile ``csrc/march.cu`` unless this exact build exists. Raises
-    with the compiler's output when the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half
-    return out
-
-
-def load():
-    """Build if needed, then load the library and declare its C ABI."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def load(source: str = "march"):
+    """Build if needed, then load ``csrc/<source>.cu`` and declare its C
+    ABI (both march sources export ``rt_march`` and
+    ``rt_march_max_objects``; ``march_mxu`` also ``rt_bunny_mlp_mxu``)."""
+    if source not in _libs:
+        lib = build.load(source)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rt_march.argtypes = (
-            [p, p, p, i, f, p, p, p, p, p, p, p, f, f, f, f, f, f, i, i, i,
-             i, i] + [p] * 8 + [i, p])
+        lib.rt_march.argtypes = ([p, p, p, i, f, p, p, p, p, p, p, p, f, f,
+                                  f, f, f, f, i, i, i, i, i] + [p] * 8
+                                 + [i, p])
         lib.rt_march.restype = i
         lib.rt_march_max_objects.argtypes = []
         lib.rt_march_max_objects.restype = i
-        _lib = lib
-    return _lib
+        if source == "march_mxu":
+            lib.rt_bunny_mlp_mxu.argtypes = [p, p, p, i, i, p]
+            lib.rt_bunny_mlp_mxu.restype = i
+        _libs[source] = lib
+    return _libs[source]
 
 
 def pack_scene(scene, bound2: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -152,19 +111,85 @@ def pack_bunny(scene) -> torch.Tensor:
                       b.b_h2[None], b.w_out[None], last], 0)
 
 
+def _mxu_layout():
+    """Source index into the flat weight vector of :func:`pack_bunny_mxu`
+    (w_in, b_in, w_h1, b_h1, w_h2, b_h2, w_out row-major, then bias_out and
+    a zero) for each (row, lane) of the pack, and each row's kind: 0 the
+    f32 value, 1 its TF32 rounding (big), 2 the TF32 rounding of the rest
+    (small)."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    src = np.full((64, 32), 625, np.int64)
+    kind = np.zeros((64, 1), np.int64)
+    for q in range(4):  # feature slot q of lane (g, t): 8 nt + 2 t + j
+        f = 8 * (q >> 1) + 2 * t + (q & 1)
+        for c in range(3):
+            src[4 * q + c] = 16 * c + f          # w_in[c][f]
+        src[4 * q + 3] = 48 + f                  # b_in[f]
+        src[56 + q] = 608 + f                    # w_out[f]
+    for h, (w0, b0) in enumerate(((64, 320), (336, 592))):
+        base = 16 + 20 * h
+        for q in range(4):
+            src[base + 16 + q] = b0 + 8 * (q >> 1) + 2 * t + (q & 1)
+        for m in range(4):  # m = 2 kk + nt
+            kk, nt = divmod(m, 2)
+            k0, n = 8 * kk + 2 * t, 8 * nt + g
+            r = base + 4 * m
+            src[r] = src[r + 2] = w0 + 16 * k0 + n        # W[k0][n]
+            src[r + 1] = src[r + 3] = w0 + 16 * (k0 + 1) + n
+            kind[r:r + 2] = 1
+            kind[r + 2:r + 4] = 2
+    src[60] = 624
+    return src, kind
+
+
+_MXU_SRC, _MXU_KIND = _mxu_layout()
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` does."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_bunny_mxu(scene) -> torch.Tensor:
+    """The bunny MLP in the layout of K1d's ``mma.sync`` fragments: a (64,
+    32) f32 block, one float per lane in each row. For lane ``4 g + t``,
+    feature slot ``q = 2 nt + j`` is feature ``8 nt + 2 t + j``:
+
+    - rows 0-15: ``4 q + c``, w_in[c][f] for c < 3, b_in[f] for c = 3;
+    - rows 16-35 (w_h1) and 36-55 (w_h2): for ``m = 2 kk + nt``, rows
+      ``4 m + (0, 1)`` hold the TF32 roundings of W[8 kk + 2 t][8 nt + g]
+      and W[8 kk + 2 t + 1][8 nt + g] (the B fragment with the K index
+      permuted to match the accumulator layout), ``4 m + (2, 3)`` the TF32
+      roundings of what those leave; then 4 rows of the layer's bias[f];
+    - rows 56-59: w_out[f]; row 60: bias_out; rows 61-63: zero.
+
+    The TPU's kron(Wᵀ, I₈) layout served its (8, 128) tiles and is not
+    copied."""
+    b = scene.bunny
+    dev, dt = b.w_in.device, b.w_in.dtype
+    flat = torch.cat([b.w_in.reshape(-1), b.b_in, b.w_h1.reshape(-1),
+                      b.b_h1, b.w_h2.reshape(-1), b.b_h2, b.w_out,
+                      b.bias_out.reshape(1), torch.zeros(1, dtype=dt,
+                                                         device=dev)])
+    v = flat[torch.as_tensor(_MXU_SRC, device=dev)]
+    big = _tf32(v)
+    small = _tf32(v - big)
+    kind = torch.as_tensor(_MXU_KIND, device=dev)
+    return torch.where(kind == 1, big, torch.where(kind == 2, small, v))
+
+
 def variant(scene, cfg: RenderConfig) -> str:
     """The kernel that marches this scene under this config: ``k1a``,
-    ``k1b`` or ``k1c``. Raises NotImplementedError for what none serves."""
+    ``k1b``, ``k1c`` or ``k1d``. Raises NotImplementedError for what none
+    serves."""
     if cfg.omega_policy not in _POLICY or cfg.hit_criterion not in _CRIT:
         raise NotImplementedError(
             f"no CUDA march serves {cfg.omega_policy} with "
             f"{cfg.hit_criterion}")
     if SHAPE.BUNNY in scene.shape_types:
-        if cfg.bunny_mxu:
-            raise NotImplementedError(
-                "cfg.bunny_mxu asks for the tensor-core bunny MLP, kernel "
-                "K1d, which is not ported; K1c serves bunny_mxu=False")
-        return "k1c"
+        return "k1d" if cfg.bunny_mxu else "k1c"
     if (cfg.omega_policy == OmegaPolicy.CONSTANT
             and cfg.hit_criterion == HitCriterion.ABSOLUTE
             and not scenelib.has_escape_bound(scene, cfg)):
@@ -182,7 +207,7 @@ def _vec(x: torch.Tensor, n: int, dtype, name: str) -> torch.Tensor:
 def march_resumable_cuda(scene, origin: torch.Tensor,
                          direction: torch.Tensor, cfg: RenderConfig,
                          active=None, init=None):
-    """Budget-capped resumable march on the card through K1a, K1b or K1c.
+    """Budget-capped resumable march on the card through K1a-K1d.
 
     Same contract as ``ops/march.march_resumable``; returns the tuple
     ``(t, index, hit, fin, w, s, d, done)`` (f32, i32, bool, i32, f32, f32,
@@ -199,7 +224,7 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
     if scene.position.device != origin.device:
         raise ValueError(f"scene on {scene.position.device}, rays on "
                          f"{origin.device}")
-    lib = load()
+    lib = load(_SOURCE[kind])
     if scene.num_objects > lib.rt_march_max_objects():
         raise NotImplementedError(
             f"{scene.num_objects} objects; the kernel stages at most "
@@ -208,7 +233,8 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
     direction = direction.contiguous()
     bound2 = scenelib.escape_bound2(scene, cfg)
     params = pack_scene(scene, bound2).contiguous()
-    bunny = pack_bunny(scene).contiguous() if kind == "k1c" else None
+    bunny = {"k1c": pack_bunny, "k1d": pack_bunny_mxu}.get(kind)
+    bunny = None if bunny is None else bunny(scene).contiguous()
     act = None if active is None else _vec(active, n, torch.bool, "active")
     inits = (None,) * 4 if init is None else tuple(
         _vec(v, n, torch.float32, k) for v, k in zip(init, "twsd"))
@@ -241,3 +267,28 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
                            f"{rc}")
     LAUNCHES[kind] += 1
     return t, idx, hit, fin, w, s, d, done
+
+
+def bunny_mlp_mxu(scene, points: torch.Tensor) -> torch.Tensor:
+    """K1d's device MLP alone: the raw bunny MLP (no support test) of each
+    of the (N, 3) f32 CUDA ``points``, evaluated a warp at a time on the
+    tensor cores as inside the march. Its plain version is
+    ``ops/sdf.bunny_mlp_eval``. For checking the kernel's MLP; not on any
+    render path and not counted in :data:`LAUNCHES`."""
+    n = points.shape[0]
+    if (not points.is_cuda or points.shape != (n, 3)
+            or points.dtype != torch.float32):
+        raise ValueError(f"expected a CUDA (N, 3) float32 tensor, got "
+                         f"{tuple(points.shape)} {points.dtype} on "
+                         f"{points.device}")
+    lib = load("march_mxu")
+    pack = pack_bunny_mxu(scene).to(points.device).contiguous()
+    points = points.contiguous()
+    out = torch.empty((n,), dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        rc = lib.rt_bunny_mlp_mxu(pack.data_ptr(), points.data_ptr(),
+                                  out.data_ptr(), n, BLOCK, stream)
+    if rc != 0:
+        raise RuntimeError(f"K1d MLP launch failed: CUDA error {rc}")
+    return out

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from ..core.device import resolve
 from ..core.math import mix, sample_spherical_map
 
 
@@ -33,7 +34,7 @@ class Environment:
 
 
 def _scalar(v, device, dtype):
-    return torch.as_tensor(v, dtype=dtype, device=device)
+    return torch.as_tensor(v, dtype=dtype, device=resolve(device))
 
 
 def black_sky(device=None, dtype=torch.float32) -> Environment:
@@ -71,7 +72,10 @@ def hdr_environment(image, exposure: float = 1.4, gamma: float = 2.2,
                     dtype=torch.float32) -> Environment:
     """HDR equirect environment from a (W, H, 3) linear image indexed
     ``img[x, y]``; ``prebake`` applies the exposure/gamma adjust once
-    here."""
+    here. An image handed as a tensor stays on its device unless
+    ``device`` says otherwise."""
+    if not (device is None and isinstance(image, torch.Tensor)):
+        device = resolve(device)
     img = torch.as_tensor(image, dtype=dtype, device=device)
     if prebake:
         img = adjust(img, exposure, gamma)

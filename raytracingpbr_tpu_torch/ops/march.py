@@ -4,9 +4,11 @@
 advances in lock-step with per-lane masks until every lane has hit or
 escaped, or the trip budget is spent. It is the oracle for the CUDA march
 kernels (``kernels/march_kernel.py``), and on the CPU it is the march. Its
-``nearest`` evaluates the bunny MLP written out in the kernel's order of
+``nearest`` evaluates the bunny MLP written out in K1c's order of
 operations (about 150 elementwise launches a trip on the card), so the
-two agree bit for bit there.
+two agree bit for bit there; with ``cfg.bunny_mxu`` it evaluates the MLP
+in the matmul form, the plain version of K1d, which the tensor-core kernel
+matches within the bar of :func:`assert_march_close`.
 
 Dispatch follows the tensors: ``march_resumable`` and ``march`` send CUDA
 tensors to the kernel and CPU tensors to the plain version.
@@ -50,10 +52,12 @@ class ResumableResult(NamedTuple):
 
 
 def _march_loop(scene: Scene, origin, direction, cfg: RenderConfig,
-                active=None, init=None) -> ResumableResult:
+                active=None, init=None, on_trip=None) -> ResumableResult:
     """The lock-step march. Inactive lanes start done (``fin`` 0, ``index``
     0, ``hit`` False) and echo their init ``(t, w, s, d)``; the wavefront's
-    split carry relies on that."""
+    split carry relies on that. ``on_trip(pos, live)``, if given, sees
+    each trip's points and live lanes (work accounting,
+    ``utils/speedlight``)."""
     n = origin.shape[0]
     kw = dict(dtype=origin.dtype, device=origin.device)
     full = lambda v: torch.full((n,), v, **kw)
@@ -73,7 +77,10 @@ def _march_loop(scene: Scene, origin, direction, cfg: RenderConfig,
     i = 0
     while i < cfg.max_raymarch and not bool(done.all()):
         pos = origin + t[:, None] * direction
-        idx_now, dist = scenelib.nearest(scene, pos)
+        if on_trip is not None:
+            on_trip(pos, ~done)
+        idx_now, dist = scenelib.nearest(scene, pos,
+                                         kernel_order=not cfg.bunny_mxu)
 
         if cfg.omega_policy == OmegaPolicy.CONSTANT:
             rollback = torch.zeros_like(done)
@@ -123,11 +130,78 @@ def _march_loop(scene: Scene, origin, direction, cfg: RenderConfig,
 def march_resumable_plain(scene: Scene, origin: torch.Tensor,
                           direction: torch.Tensor, cfg: RenderConfig,
                           active: Optional[torch.Tensor] = None,
-                          init=None) -> ResumableResult:
+                          init=None, on_trip=None) -> ResumableResult:
     """Plain PyTorch budget-capped march on any device: the oracle of the
-    CUDA kernel. Same contract as :func:`march_resumable`."""
+    CUDA kernels. Same contract as :func:`march_resumable`; ``on_trip`` as
+    in :func:`_march_loop`."""
     with torch.no_grad():
-        return _march_loop(scene, origin, direction, cfg, active, init)
+        return _march_loop(scene, origin, direction, cfg, active, init,
+                           on_trip)
+
+
+def assert_march_close(scene: Scene, origin: torch.Tensor,
+                       direction: torch.Tensor, k: ResumableResult,
+                       p: ResumableResult, cfg: RenderConfig):
+    """K1d's bar against its plain version (the matmul-form march) on the
+    same rays, on the reference's march bars (``tests/test_pallas.py:45-52``):
+    - at least 99.9% of lanes agree on hit;
+    - the index is equal wherever both hit;
+    - where hit agrees, ``t`` is within rtol and atol 1e-3, save
+      - lanes excused: both hit within ``max(omega, 1)`` hit tolerances of
+        each other (``t * pixel_radius`` for RELATIVE and CONE,
+        ``hit_precision`` for ABSOLUTE), the two f32 evaluations of the
+        MLP putting the hit one trip apart; or both missed and have left
+        the scene, past ``cfg.max_dis`` or outside its bounding sphere and
+        moving away (the escape bound's test, whether ``cfg`` runs it or
+        not): nothing is left to hit, and the march's steps grow with t,
+        so a difference from the MLP grows with it;
+      - grazing lanes, at most one in 10,000 (``n // 10000``): a lane that
+        passes a surface at about the hit threshold is sent on different
+        paths by the two evaluations (a hit there or on a farther
+        surface), as a hit lane is sent apart from a miss lane on the 0.1%
+        the first bar allows.
+    Raises AssertionError.
+
+    Returns ``(max |dt| over the lanes held to the tolerance, lanes
+    excused, lanes disagreeing on hit, (N,) bool mask of the grazing lanes
+    apart in t)``."""
+    n = k.t.numel()
+    same = k.hit == p.hit
+    both = k.hit & p.hit
+    dt = (k.t - p.t).abs()
+    close = torch.isclose(k.t, p.t, rtol=1e-3, atol=1e-3)
+    if cfg.hit_criterion == HitCriterion.ABSOLUTE:
+        tol = torch.full_like(dt, cfg.hit_precision)
+    else:
+        tol = torch.maximum(k.t, p.t) * cfg.pixel_radius
+    one_trip = both & (dt <= max(cfg.omega, 1.0) * tol)
+    bound2 = scenelib.escape_bound2(scene, cfg.replace(escape_bound=True))
+
+    def left(t):
+        out = t >= cfg.max_dis
+        if bound2 is not None:
+            pos = origin + t[:, None] * direction
+            out = out | ((dot(pos, pos) > bound2)
+                         & (dot(pos, direction) > 0.0))
+        return out
+
+    gone = ~k.hit & ~p.hit & left(k.t) & left(p.t)
+    excused = ~close & (gone | one_trip)
+    apart = same & ~close & ~excused
+    split = int((~same).sum())
+    index_bad = int((k.index != p.index)[both].sum())
+    if split * 1000 > n or int(apart.sum()) > n // 10000 or index_bad:
+        lanes = torch.nonzero(apart).flatten()[:8].tolist()
+        raise AssertionError(
+            f"march bar: {split} of {n} lanes disagree on hit (at most "
+            f"0.1%); {int(apart.sum())} agreeing lanes apart in t (at most "
+            f"{n // 10000}), first {lanes}: t {k.t[lanes].tolist()} vs "
+            f"{p.t[lanes].tolist()}, hit {k.hit[lanes].tolist()}, done "
+            f"{k.done[lanes].tolist()} vs {p.done[lanes].tolist()}; "
+            f"{index_bad} index mismatches where both hit")
+    held = same & close
+    err = float(dt[held].max()) if bool(held.any()) else 0.0
+    return err, int(excused.sum()), split, apart
 
 
 def march_resumable(scene: Scene, origin: torch.Tensor,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.device import resolve
 from ..core.math import rotate_euler
 from . import sdf as sdflib
 from .sdf import SHAPE, BunnyMLP
@@ -138,6 +139,7 @@ def make_scene(objects: Sequence[ObjectSpec], box_round: float = 0.03,
                device=None, dtype=torch.float32) -> Scene:
     """Build a Scene from specs: sort by shape type, bake and snap the
     rotation matrices."""
+    device = resolve(device)
     objs = sorted(objects, key=lambda o: int(o.shape))
     types = tuple(int(o.shape) for o in objs)
     splits, bucket_types = bucket_layout(types)
@@ -206,16 +208,17 @@ def all_distances(scene: Scene, p: torch.Tensor,
     return torch.cat(chunks, dim=-1)
 
 
-def nearest(scene: Scene, p: torch.Tensor):
+def nearest(scene: Scene, p: torch.Tensor, kernel_order: bool = True):
     """Nearest object index (int32) and min |sd|, as a running minimum that
     starts at MAX_DIS with a strict ``<``.
 
-    This is the march kernel's convention: the first object wins ties, the
+    This is the march kernels' convention: the first object wins ties, the
     distance is clamped at MAX_DIS, and the index stays 0 on points where
     no distance is below MAX_DIS. (JAX's ``nearest`` takes an argmin and
     then clamps, so on such far points its index can differ; it agrees
-    everywhere else.) The bunny is evaluated in the kernel's order too."""
-    d = torch.abs(all_distances(scene, p, kernel_order=True))
+    everywhere else.) ``kernel_order``: the bunny in K1c's order of
+    operations; False, in the matmul form (K1d's plain version)."""
+    d = torch.abs(all_distances(scene, p, kernel_order=kernel_order))
     best = torch.full(d.shape[:-1], MAX_DIS, dtype=d.dtype, device=d.device)
     idx = torch.zeros(d.shape[:-1], dtype=torch.int32, device=d.device)
     for i in range(scene.num_objects):

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.device import resolve
 from ..core.math import radians, rotate_euler, safe_norm
 
 MAX_DIS = 1e3
@@ -120,6 +121,7 @@ class BunnyMLP(NamedTuple):
 
 def load_bunny(device=None, dtype=torch.float32) -> BunnyMLP:
     """The trained weights from ``assets/bunny_mlp.npz``."""
+    device = resolve(device)
     with np.load(_ASSET) as z:
         return BunnyMLP(**{k: torch.tensor(z[k], dtype=dtype, device=device)
                            for k in BunnyMLP._fields})

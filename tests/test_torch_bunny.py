@@ -24,7 +24,7 @@ from raytracingpbr_tpu_torch.models import bunny as tbunny
 from raytracingpbr_tpu_torch.ops import scene as tscene
 from raytracingpbr_tpu_torch.ops import sdf as tsdf
 
-from .torch_helpers import nn, tt
+from .torch_helpers import CPU, nn, tt
 
 
 def _points(n=4096, seed=0, r_max=1.6):
@@ -47,7 +47,7 @@ def _close(got, ref, rtol=1e-5, atol=1e-6):
 
 
 def test_load_bunny_matches_jax():
-    jb, tb = jsdf.load_bunny(), tsdf.load_bunny()
+    jb, tb = jsdf.load_bunny(), tsdf.load_bunny(CPU)
     assert tb._fields == tuple(
         f for f in ("w_in", "b_in", "w_h1", "b_h1", "w_h2", "b_h2", "w_out",
                     "bias_out"))
@@ -60,7 +60,7 @@ def test_load_bunny_matches_jax():
 
 def test_mlp_eval_and_sd_bunny_match_jax():
     p = _points()
-    jb, tb = jsdf.load_bunny(), tsdf.load_bunny()
+    jb, tb = jsdf.load_bunny(), tsdf.load_bunny(CPU)
     _close(tsdf.bunny_mlp_eval(tb, tt(p)), jsdf.bunny_mlp_eval(jb, p))
     _close(tsdf.sd_bunny(tt(p), tb), jsdf.sd_bunny(jnp.asarray(p), jb))
 
@@ -68,7 +68,7 @@ def test_mlp_eval_and_sd_bunny_match_jax():
 def test_unrolled_eval_matches_jax():
     """The march's form of the MLP, in the kernel's operation order."""
     p = _points(seed=1)
-    jb, tb = jsdf.load_bunny(), tsdf.load_bunny()
+    jb, tb = jsdf.load_bunny(), tsdf.load_bunny(CPU)
     got = tsdf.bunny_mlp_eval_unrolled(tb, *(tt(p[:, k]) for k in range(3)))
     _close(got, jsdf.bunny_mlp_eval(jb, p), rtol=0, atol=1e-5)
     got = tsdf.sd_bunny_unrolled(*(tt(p[:, k]) for k in range(3)), tb)
@@ -86,7 +86,7 @@ def _scenes():
 @pytest.mark.parametrize("name", ["glass", "animated"])
 def test_geometry_queries_on_bunny_scenes(name):
     js = _scenes()[name]
-    ts = scene_from_jax(js)
+    ts = scene_from_jax(js, CPU)
     p = _points(seed=2)
     _close(tscene.all_distances(ts, tt(p)), jscene.all_distances(js, p))
     j_idx, j_d = jscene.nearest(js, jnp.asarray(p))
@@ -105,7 +105,7 @@ def test_geometry_queries_on_bunny_scenes(name):
 def test_animate_matches_jax(frame):
     base = jbunny.glass_scene()
     ref = jscene.animate(base, jnp.asarray(frame))
-    got = tbunny.animated_scene(scene_from_jax(base), frame)
+    got = tbunny.animated_scene(scene_from_jax(base, CPU), frame)
     _close(got.matrix, ref.matrix, rtol=0, atol=1e-6)
     _close(got.local_offset, ref.local_offset, rtol=0, atol=1e-6)
     assert got.rot_perm == (None,)
@@ -114,7 +114,7 @@ def test_animate_matches_jax(frame):
                                   np.asarray(base.bunny.w_h2))
     np.testing.assert_array_equal(nn(got.albedo), np.asarray(base.albedo))
     # a frame given as a tensor on the scene's device gives the same scene
-    again = tbunny.animated_scene(scene_from_jax(base), tt(frame))
+    again = tbunny.animated_scene(scene_from_jax(base, CPU), tt(frame))
     np.testing.assert_array_equal(nn(again.matrix), nn(got.matrix))
 
 
@@ -122,7 +122,7 @@ def test_bake_matches_jax():
     js = jbunny.metal_scene()
     js = js.replace(rotation=js.rotation + jnp.asarray([[10.0, 20.0, 30.0]]))
     ref = jscene.bake(js)
-    got = tscene.bake(scene_from_jax(js))
+    got = tscene.bake(scene_from_jax(js, CPU))
     _close(got.matrix, ref.matrix, rtol=0, atol=1e-6)
     assert got.rot_perm == ref.rot_perm == (None,)
 
@@ -131,7 +131,7 @@ def test_bake_matches_jax():
 def test_bounding_radius(name):
     js = _scenes()[name]
     ref = jscene.bounding_radius(js)
-    got = tscene.bounding_radius(scene_from_jax(js))
+    got = tscene.bounding_radius(scene_from_jax(js, CPU))
     _close(got, ref, rtol=1e-6, atol=0)
     # unit-sphere support (r = 1) at the origin, plus the bob offset
     off = float(np.linalg.norm(np.asarray(js.local_offset)[0]))
@@ -141,8 +141,8 @@ def test_bounding_radius(name):
 
 def test_scene_from_jax_carries_the_bunny():
     js = jbunny.glass_scene()
-    ts = scene_from_jax(js)
-    own = tbunny.glass_scene()
+    ts = scene_from_jax(js, CPU)
+    own = tbunny.glass_scene(CPU)
     assert ts.shape_types == own.shape_types == (int(tsdf.SHAPE.BUNNY),)
     assert ts.rot_perm == own.rot_perm == tuple(js.rot_perm)
     for k in tsdf.BunnyMLP._fields:

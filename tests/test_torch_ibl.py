@@ -21,7 +21,7 @@ from raytracingpbr_tpu_torch.models import bunny as tbunny
 from raytracingpbr_tpu_torch.models import demo as tdemo
 from raytracingpbr_tpu_torch.ops import ibl as tibl
 
-from .torch_helpers import nn, tt
+from .torch_helpers import CPU, nn, tt
 
 
 def _close(got, ref, rtol=1e-5, atol=1e-6):
@@ -63,18 +63,19 @@ def test_hdr_environment_prebake_matches_jax(exposure, gamma):
     img = jdemo.synthetic_hdr()
     ref = jibl.hdr_environment(jnp.asarray(img), exposure=exposure,
                                gamma=gamma)
-    got = tibl.hdr_environment(img, exposure=exposure, gamma=gamma)
+    got = tibl.hdr_environment(img, exposure=exposure, gamma=gamma,
+                               device=CPU)
     assert got.kind == ref.kind == "hdr"
     _close(got.image, ref.image)
     _close(got.scale, ref.scale)
-    raw = tibl.hdr_environment(img, prebake=False)
+    raw = tibl.hdr_environment(img, prebake=False, device=CPU)
     np.testing.assert_array_equal(nn(raw.image), img)
 
 
 @pytest.mark.parametrize("bilinear", [False, True])
 def test_hdr_sky_color_matches_jax(bilinear):
     jenv = jdemo.tokyo_environment(bilinear=bilinear)
-    env = environment_from_jax(jenv)
+    env = environment_from_jax(jenv, CPU)
     assert env.bilinear == bilinear
     np.testing.assert_array_equal(nn(env.image), np.asarray(jenv.image))
     d = _directions(seed=1 + bilinear)
@@ -89,7 +90,7 @@ def test_model_environments_match_jax(name):
             "tokyo": (jdemo.tokyo_environment, tdemo.tokyo_environment),
             "engine": (jdemo.engine_environment,
                        tdemo.engine_environment)}[name]
-    ref, got = make[0](), make[1]()
+    ref, got = make[0](), make[1](device=CPU)
     assert got.bilinear == ref.bilinear
     _close(got.image, ref.image)
     d = _directions(n=1024, seed=7)

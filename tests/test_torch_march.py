@@ -24,7 +24,7 @@ from raytracingpbr_tpu_torch.models import bunny as tbunny
 from raytracingpbr_tpu_torch.models import cornell as tcornell
 from raytracingpbr_tpu_torch.ops import march as tmarch
 
-from .torch_helpers import nn, random_rays, tt
+from .torch_helpers import CPU, nn, random_rays, tt
 
 
 def cornell_primaries(cfg, n=None, seed=3):
@@ -72,7 +72,7 @@ def test_plain_march_matches_jax(case):
                                  spread=0.3))
     ref = jmarch.march(js, jnp.asarray(o), jnp.asarray(d), jcfg,
                        differentiable=False, backend="xla")
-    got = tmarch.march(scene_from_jax(js), tt(o), tt(d),
+    got = tmarch.march(scene_from_jax(js, CPU), tt(o), tt(d),
                        config_from_jax(jcfg))
     _assert_march_bars(ref, got)
     assert nn(got.hit).mean() > 0.3
@@ -98,7 +98,7 @@ def test_plain_resumable_matches_pallas_interpret(monkeypatch):
                                  active=jnp.asarray(active),
                                  init=tuple(jnp.asarray(v) for v in init),
                                  backend="pallas")
-    got = tmarch.march_resumable(scene_from_jax(js), tt(o), tt(d),
+    got = tmarch.march_resumable(scene_from_jax(js, CPU), tt(o), tt(d),
                                  config_from_jax(jcfg), active=tt(active),
                                  init=tuple(tt(v) for v in init))
     _assert_march_bars(ref, got)
@@ -137,7 +137,7 @@ def _chain(scene, o, d, cfg, budget):
 def test_chained_resumes_bit_identical(policy):
     """Chained budget-16 resumes equal one uninterrupted march, lane by lane
     and bit for bit (the property the split wavefront rests on)."""
-    scene = tcornell.full_scene()
+    scene = tcornell.full_scene(CPU)
     cfg = tcornell.full_config().replace(resolution=(48, 48),
                                          max_raymarch=64)
     if policy == "rollback":
@@ -154,7 +154,7 @@ def test_chained_resumes_bit_identical(policy):
 
 
 def test_inactive_lanes_echo_init_and_ragged_n():
-    scene = tcornell.full_scene()
+    scene = tcornell.full_scene(CPU)
     cfg = tcornell.full_config().replace(max_raymarch=32)
     n = 777  # not a multiple of any block size
     o, d = random_rays(n, seed=9, center=(0.0, 0.0, 0.5), spread=0.3)
@@ -185,7 +185,7 @@ def test_inactive_lanes_echo_init_and_ragged_n():
 
 def test_cpu_tensors_take_the_plain_version():
     """The wrapper dispatch: CPU tensors never reach the kernel."""
-    scene = tcornell.full_scene()
+    scene = tcornell.full_scene(CPU)
     cfg = tcornell.full_config().replace(max_raymarch=16)
     o, d = random_rays(64, seed=0)
     before = dict(march_kernel.LAUNCHES)
@@ -197,16 +197,19 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_kernel_wrapper_refuses_cpu_and_other_variants():
-    scene = tcornell.full_scene()
+    scene = tcornell.full_scene(CPU)
     o, d = random_rays(8, seed=0)
     with pytest.raises(ValueError):
         march_kernel.march_resumable_cuda(scene, tt(o), tt(d),
                                           tcornell.full_config())
-    # the variant check comes first: the tensor-core bunny MLP is K1d
-    with pytest.raises(NotImplementedError, match="K1d"):
-        march_kernel.march_resumable_cuda(
-            tbunny.glass_scene(), tt(o), tt(d),
-            tbunny.glass_config().replace(bunny_mxu=True))
+    # cfg.bunny_mxu selects the tensor-core bunny MLP, K1d, and K1d too
+    # refuses CPU tensors
+    glass, gcfg = tbunny.glass_scene(CPU), tbunny.glass_config()
+    assert march_kernel.variant(glass, gcfg) == "k1c"
+    assert march_kernel.variant(glass, gcfg.replace(bunny_mxu=True)) == "k1d"
+    with pytest.raises(ValueError):
+        march_kernel.march_resumable_cuda(glass, tt(o), tt(d),
+                                          gcfg.replace(bunny_mxu=True))
     assert march_kernel.variant(scene, tcornell.full_config()) == "k1a"
     assert march_kernel.variant(scene, tcornell.v3_config()) == "k1b"
     with pytest.raises(NotImplementedError):
@@ -215,7 +218,7 @@ def test_kernel_wrapper_refuses_cpu_and_other_variants():
 
 
 def test_pack_scene_layout():
-    scene = tcornell.full_scene()
+    scene = tcornell.full_scene(CPU)
     p = nn(march_kernel.pack_scene(scene))
     assert p.shape == (scene.num_objects, 32)
     np.testing.assert_array_equal(p[:, 0:3], nn(scene.position))

@@ -32,7 +32,7 @@ from raytracingpbr_tpu_torch.kernels import march_kernel
 from raytracingpbr_tpu_torch.ops import march as tmarch
 
 from .test_torch_march import _assert_march_bars
-from .torch_helpers import nn, random_rays, tt
+from .torch_helpers import CPU, nn, random_rays, tt
 
 
 def bunny_rays(n=1024, seed=3):
@@ -53,7 +53,7 @@ def test_plain_bunny_march_matches_jax(animated):
     o, d = bunny_rays()
     ref = jmarch.march(js, jnp.asarray(o), jnp.asarray(d), jcfg,
                        differentiable=False, backend="xla")
-    got = tmarch.march(scene_from_jax(js), tt(o), tt(d),
+    got = tmarch.march(scene_from_jax(js, CPU), tt(o), tt(d),
                        config_from_jax(jcfg))
     h_ref, h_got = np.asarray(ref.hit), nn(got.hit)
     assert h_ref.mean() > 0.2  # a fair share of the lanes hit the bunny
@@ -83,7 +83,7 @@ def test_plain_bunny_resume_matches_pallas_interpret(monkeypatch):
                                  active=jnp.asarray(active),
                                  init=tuple(jnp.asarray(v) for v in init),
                                  backend="pallas")
-    got = tmarch.march_resumable(scene_from_jax(js), tt(o), tt(d),
+    got = tmarch.march_resumable(scene_from_jax(js, CPU), tt(o), tt(d),
                                  config_from_jax(jcfg), active=tt(active),
                                  init=tuple(tt(v) for v in init))
     _assert_march_bars(ref, got)
@@ -127,7 +127,7 @@ def test_k1b_variants_plain_match_jax(case):
     o, d = np.concatenate([o1, o2]), np.concatenate([d1, d2])
     ref = jmarch.march(js, jnp.asarray(o), jnp.asarray(d), jcfg,
                        differentiable=False, backend="xla")
-    ts, tcfg = scene_from_jax(js), config_from_jax(jcfg)
+    ts, tcfg = scene_from_jax(js, CPU), config_from_jax(jcfg)
     assert march_kernel.variant(ts, tcfg) == "k1b"
     got = tmarch.march(ts, tt(o), tt(d), tcfg)
     _assert_march_bars(ref, got)

@@ -22,7 +22,7 @@ from raytracingpbr_tpu_torch.models import cornell as tcornell
 from raytracingpbr_tpu_torch.ops import scene as tscene
 from raytracingpbr_tpu_torch.ops import sdf as tsdf
 
-from .torch_helpers import nn, tt
+from .torch_helpers import CPU, nn, tt
 
 RTOL = 1e-5
 
@@ -64,7 +64,7 @@ def _points(n=4096, seed=0):
                                    "v2_scene"])
 def test_make_scene_matches(maker):
     j = getattr(jcornell, maker)()
-    t = getattr(tcornell, maker)()
+    t = getattr(tcornell, maker)(CPU)
     assert t.shape_types == j.shape_types
     assert t.type_splits == j.type_splits
     assert t.bucket_types == j.bucket_types
@@ -92,7 +92,7 @@ def _atol(js):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_geometry_queries_match(name):
     js = SCENES[name]()
-    ts = scene_from_jax(js)
+    ts = scene_from_jax(js, CPU)
     p = _points()
     jp, tp = jnp.asarray(p), tt(p)
     atol = _atol(js)
@@ -138,7 +138,7 @@ def test_box_normals_split_ties_like_jax():
     """On box edges and corners the inside-max ties: JAX splits the
     gradient evenly, and so must the port (amax / maximum, not max(dim))."""
     js = jcornell.full_scene()
-    ts = scene_from_jax(js)
+    ts = scene_from_jax(js, CPU)
     # points exactly on edges/corners of the back wall box (index 0 after
     # the type sort: every object is a box, order kept)
     p = np.array([[1.0, 1.0, -0.8], [1.0, 1.0, -1.2], [-1.0, 0.0, -0.8],
@@ -165,7 +165,7 @@ def test_sdf_primitives_match(shape):
 def test_bunny_scene_raises():
     """A BUNNY object needs the MLP weights: ``make_scene`` loads them, a
     bare ``Scene`` without them raises."""
-    s = tscene.make_scene([tscene.ObjectSpec(tsdf.SHAPE.BUNNY)])
+    s = tscene.make_scene([tscene.ObjectSpec(tsdf.SHAPE.BUNNY)], device=CPU)
     assert s.bunny is not None and s.bunny.w_h1.shape == (16, 16)
     with pytest.raises(ValueError):
         tscene.Scene(s.shape_types, s.type_splits, s.bucket_types,

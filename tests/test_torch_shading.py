@@ -23,7 +23,7 @@ from raytracingpbr_tpu_torch.ops import ibl as tibl
 from raytracingpbr_tpu_torch.ops import post as tpost
 from raytracingpbr_tpu_torch.ops import shade as tshade
 
-from .torch_helpers import nn, random_rays, tt
+from .torch_helpers import CPU, nn, random_rays, tt
 
 RTOL = 1e-5
 N = 4096
@@ -47,7 +47,7 @@ def test_camera_rays_match():
     for jcam in (jcornell.full_camera(), jcornell.minimal_camera()):
         ref = jcamera.get_ray(jcam, juv, jnp.asarray(u[2]),
                               jnp.asarray(u[3]))
-        got = tcamera.get_ray(camera_from_jax(jcam), tuv, tt(u[2]),
+        got = tcamera.get_ray(camera_from_jax(jcam, CPU), tuv, tt(u[2]),
                               tt(u[3]))
         _close(got.origin, ref.origin)
         _close(got.direction, ref.direction)
@@ -86,7 +86,7 @@ def test_surface_interaction_matches(flags):
         js, jnp.asarray(idx), jnp.asarray(pos), jnp.asarray(dirs),
         tuple(jnp.asarray(v) for v in u), jcfg, **flags)
     got = tshade.ray_surface_interaction(
-        scene_from_jax(js), tt(idx), tt(pos), tt(dirs),
+        scene_from_jax(js, CPU), tt(idx), tt(pos), tt(dirs),
         tuple(tt(v) for v in u), config_from_jax(jcfg), **flags)
     for name in ("diffuse", "outer", "killed", "reflect"):
         np.testing.assert_array_equal(nn(getattr(got, name)),
@@ -103,7 +103,7 @@ def test_sky_matches(kind):
     jenv = make()
     _, d = random_rays(N, seed=4)
     ref = jibl.sky_color(jenv, jnp.asarray(d))
-    got = tibl.sky_color(environment_from_jax(jenv), tt(d))
+    got = tibl.sky_color(environment_from_jax(jenv, CPU), tt(d))
     _close(got, ref)
 
 

@@ -25,7 +25,7 @@ from raytracingpbr_tpu_torch.models import cornell as tcornell
 from raytracingpbr_tpu_torch.ops import integrator as tinteg
 from raytracingpbr_tpu_torch.utils.metrics import psnr
 
-from .torch_helpers import nn
+from .torch_helpers import CPU, nn
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(REPO, "assets", "goldens", "wavefront_cornell_full.png")
@@ -72,8 +72,8 @@ def test_render_frame_matches_jax_from_converted_state(jax_frames):
     assert int(np.asarray(mid.march_cum).max()) > 0  # segments in flight
 
     t_px, t_next = tinteg.render_frame(
-        tcornell.full_scene(), tcornell.sky(), tcornell.full_camera(),
-        convert.frame_state_from_jax(mid), convert.config_from_jax(JCFG))
+        tcornell.full_scene(CPU), tcornell.sky(CPU), tcornell.full_camera(CPU),
+        convert.frame_state_from_jax(mid, CPU), convert.config_from_jax(JCFG))
     got = convert.frame_state_to_numpy(t_next)
     ref = _jax_leaves(j_next)
     # counter-only fields: bit-exact
@@ -90,7 +90,8 @@ def test_render_frame_matches_jax_from_converted_state(jax_frames):
 
 def test_convert_round_trips_frame_state(jax_frames):
     state = jax_frames[0][1]
-    got = convert.frame_state_to_numpy(convert.frame_state_from_jax(state))
+    got = convert.frame_state_to_numpy(
+        convert.frame_state_from_jax(state, CPU))
     ref = _jax_leaves(state)
     assert sorted(got) == sorted(ref)
     for k in ref:
@@ -103,7 +104,8 @@ def test_wavefront_golden():
     cfg = tcornell.full_config().replace(resolution=(64, 64),
                                          max_raymarch=160, max_raytrace=12)
     img, state = tinteg.render_image_progressive(
-        tcornell.full_scene(), tcornell.sky(), tcornell.full_camera(), cfg,
+        tcornell.full_scene(CPU), tcornell.sky(CPU),
+        tcornell.full_camera(CPU), cfg,
         spp=8, exposure=0.6)
     assert float(state.accum[:, 3].min()) >= 8
     gold = read_png(GOLDEN)[..., :3]
@@ -121,9 +123,9 @@ def test_png_round_trip(tmp_path):
 
 
 def _accumulate(cfg, frames):
-    scene, env, cam = (tcornell.full_scene(), tcornell.sky(),
-                       tcornell.full_camera())
-    state = make_frame_state(cfg.num_pixels)
+    scene, env, cam = (tcornell.full_scene(CPU), tcornell.sky(CPU),
+                       tcornell.full_camera(CPU))
+    state = make_frame_state(cfg.num_pixels, CPU)
     for _ in range(frames):
         _, state = tinteg.render_frame(scene, env, cam, state, cfg)
     return nn(state.accum)

@@ -27,7 +27,7 @@ from raytracingpbr_tpu_torch.ops import integrator as tinteg
 from raytracingpbr_tpu_torch.utils.metrics import psnr
 
 from .test_torch_slice import _jax_leaves, _lanes_close
-from .torch_helpers import nn
+from .torch_helpers import CPU, nn
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN = os.path.join(REPO, "assets", "goldens",
@@ -58,11 +58,11 @@ def jax_frames():
 def test_bunny_render_frame_matches_jax_from_converted_state(jax_frames):
     (_, mid), (j_px, j_next) = jax_frames
     assert int(np.asarray(mid.march_cum).max()) > 0  # segments in flight
-    scene = tbunny.animated_scene(tbunny.glass_scene(), 12.0)
+    scene = tbunny.animated_scene(tbunny.glass_scene(CPU), 12.0)
     t_px, t_next = tinteg.render_frame(
-        scene, tbunny.glass_environment(),
-        tbunny.camera(JCFG.width / JCFG.height),
-        convert.frame_state_from_jax(mid), convert.config_from_jax(JCFG))
+        scene, tbunny.glass_environment(device=CPU),
+        tbunny.camera(JCFG.width / JCFG.height, CPU),
+        convert.frame_state_from_jax(mid, CPU), convert.config_from_jax(JCFG))
     got = convert.frame_state_to_numpy(t_next)
     ref = _jax_leaves(j_next)
     assert got["frame"] == ref["frame"]
@@ -84,8 +84,8 @@ def test_wavefront_scene_demo_golden():
                                             max_raymarch=128,
                                             max_raytrace=8)
     img, state = tinteg.render_image_progressive(
-        tdemo.scene_demo_scene(), tdemo.gradient_environment(),
-        tdemo.engine_camera(), cfg, spp=6, exposure=1.0)
+        tdemo.scene_demo_scene(CPU), tdemo.gradient_environment(device=CPU),
+        tdemo.engine_camera(CPU), cfg, spp=6, exposure=1.0)
     assert float(state.accum[:, 3].min()) >= 6
     gold = read_png(GOLDEN)[..., :3]
     got = (np.clip(nn(img), 0, 1) * 255 + 0.5).astype(np.uint8)

@@ -16,7 +16,7 @@ from raytracingpbr_tpu_torch.core.types import make_frame_state, refresh
 from raytracingpbr_tpu_torch.models import cornell as tcornell
 from raytracingpbr_tpu_torch.ops import integrator as tinteg
 
-from .torch_helpers import nn
+from .torch_helpers import CPU, nn
 
 JCFG = jcornell.full_config().replace(
     resolution=(16, 16), max_raymarch=48, max_raytrace=12,
@@ -48,8 +48,8 @@ def test_options_match_jax(jax_frames):
     gate = np.asarray(mid.noise) > JCFG.noise_threshold
     assert 0 < gate.mean() < 1  # the gate is doing something
     t_px, t_next = tinteg.render_frame(
-        tcornell.full_scene(), tcornell.sky(), tcornell.full_camera(),
-        convert.frame_state_from_jax(mid), convert.config_from_jax(JCFG))
+        tcornell.full_scene(CPU), tcornell.sky(CPU), tcornell.full_camera(CPU),
+        convert.frame_state_from_jax(mid, CPU), convert.config_from_jax(JCFG))
     got = convert.frame_state_to_numpy(t_next)
     assert got["frame"] == int(np.asarray(j_next.frame))
     np.testing.assert_array_equal(got["respawn"], np.asarray(j_next.respawn))
@@ -62,7 +62,8 @@ def test_options_match_jax(jax_frames):
         assert frac >= 0.99, f"{k}: only {frac:.2%} of lanes agree"
     assert _lanes_close(nn(t_px), np.asarray(j_px)).mean() >= 0.99
     # gated-off pixels are untouched
-    before = convert.frame_state_to_numpy(convert.frame_state_from_jax(mid))
+    before = convert.frame_state_to_numpy(
+        convert.frame_state_from_jax(mid, CPU))
     for k in ("accum", "rays.origin", "respawn"):
         np.testing.assert_array_equal(got[k][~gate], before[k][~gate])
 
@@ -71,9 +72,10 @@ def test_refresh_rearms_and_keeps_frame():
     cfg = tcornell.full_config().replace(resolution=(8, 8), max_raymarch=64,
                                          max_raytrace=8, samples_per_frame=2,
                                          march_split=16)
-    scene, env, cam = (tcornell.full_scene(), tcornell.sky(),
-                       tcornell.full_camera())
-    _, st = tinteg.render_frame(scene, env, cam, make_frame_state(64), cfg)
+    scene, env, cam = (tcornell.full_scene(CPU), tcornell.sky(CPU),
+                       tcornell.full_camera(CPU))
+    _, st = tinteg.render_frame(scene, env, cam, make_frame_state(64, CPU),
+                                cfg)
     assert float(st.accum[:, 3].sum()) > 0
     r = refresh(st)
     assert float(r.accum.abs().sum()) == 0 and int(r.frame) == 1
@@ -88,6 +90,7 @@ def test_refresh_rearms_and_keeps_frame():
 def test_unported_options_raise(field):
     cfg = RenderConfig(resolution=(4, 4), **{field: True})
     with pytest.raises(NotImplementedError):
-        tinteg.render_frame(tcornell.full_scene(), tcornell.sky(),
-                            tcornell.full_camera(), make_frame_state(16),
+        tinteg.render_frame(tcornell.full_scene(CPU), tcornell.sky(CPU),
+                            tcornell.full_camera(CPU),
+                            make_frame_state(16, CPU),
                             cfg)

@@ -3,7 +3,8 @@
 Importing this module caps PyTorch at one thread: the suite runs under
 several xdist workers, and PyTorch's default of one thread per core would
 oversubscribe the machine. It imports no jax, so the kernel tests can run
-on a machine that has only PyTorch.
+on a machine that has only PyTorch. The port's constructors build on the
+card unless told otherwise, so the CPU tests pass ``CPU``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
 
 
 def tt(x, dtype=None) -> torch.Tensor:
