@@ -24,14 +24,14 @@
       float hit_precision, float max_dis, float pixel_radius,              \
       float one_eps, int policy, int crit, int has_bound, int budget,      \
       int n, float *t_out, int *idx_out, uint8_t *hit_out, int *fin_out,   \
-      float *w_out, float *s_out, float *d_out, int *done_out, int block,  \
-      void *stream
+      float *w_out, float *s_out, float *d_out, int *done_out,             \
+      int *next_lane, unsigned long long *counts, int block, void *stream
 #define RT_MARCH_ARGS                                                       \
   params, types, bunny, n_obj, box_round, origin, direction, active,       \
       init_t, init_w, init_s, init_d, t0, w0, hit_precision, max_dis,      \
       pixel_radius, one_eps, policy, crit, has_bound, budget, n, t_out,    \
-      idx_out, hit_out, fin_out, w_out, s_out, d_out, done_out, block,     \
-      stream
+      idx_out, hit_out, fin_out, w_out, s_out, d_out, done_out, next_lane, \
+      counts, block, stream
 
 namespace rt {
 
@@ -65,6 +65,12 @@ struct MarchArgs {
   int* fin_out;
   float *w_out, *s_out, *d_out;
   int* done_out;
+  // The bunny kernels' lane pool (march_pool.cuh): the next lane to hand
+  // out, zeroed by the caller; and, or null, two tallies the kernel adds
+  // to: MLP evaluations run and lane slots of the warps that marched a
+  // step. K1a/K1b ignore both.
+  int* next_lane;
+  unsigned long long* counts;
 };
 
 __device__ __forceinline__ float sd_shape(int type, float px, float py,
@@ -246,7 +252,7 @@ int march_entry(RT_MARCH_PARAMS) {
                     direction, active, init_t, init_w, init_s, init_d,
                     t0, w0, hit_precision, max_dis, pixel_radius, one_eps,
                     budget, n, t_out, idx_out, hit_out, fin_out, w_out,
-                    s_out, d_out, done_out};
+                    s_out, d_out, done_out, next_lane, counts};
   const bool bound = has_bound != 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (policy) {

@@ -7,10 +7,16 @@
 // policy, hit test and the escape bound, the active gate, the resume from
 // (t, w, s, d) and the same eight outputs; analytic objects as in K1a-K1c.
 //
-// Design. One thread per ray lane as in K1c, but a warp marches in lock
-// step: mma.sync needs all 32 lanes converged, so the trip loop runs while
-// any lane of the warp is live and done lanes keep their state. The points
-// of a warp's 32 lanes are the 32 rows (M) of the MLP's products:
+// Design. The march is pool_kernel<POLICY, CRIT, BOUND, MxuMlp> of
+// march_pool.cuh, K1c's persistent lane pool with a compacted MLP queue;
+// this engine evaluates the queue a warp at a time: entries
+// 32 w .. 32 w + 31 are the 32 rows (M) of warp w's products, the last
+// warp padded with zero points. The queue is contiguous, so "warp w has
+// entries" is uniform over the warp and mma.sync sees a converged warp;
+// the MLP runs only for points inside the support, not for every lane of
+// a warp that holds one. (One M-tile a warp for short queues, twice the
+// warps on half the rows, measured 5% slower on the metal frame's calls.)
+// Of the MLP:
 //   - 3 -> 16 and 16 -> 1 stay on the FP32 pipes (48 and 16 products a
 //     point: no tensor-core shape is that thin);
 //   - the two 16 x 16 layers are mma.sync.m16n8k8 TF32 products, 2 M-tiles
@@ -23,26 +29,27 @@
 //     pack_bunny_mxu folds that permutation into the weights, so no shuffle
 //     or shared-memory relayout sits between the layers. 12 shuffles bring
 //     each thread its 4 points before the first layer; after the last, 8
-//     add up the quads' partial sums and 1 brings each lane its own value;
-//   - the TPU's tile skip becomes the warp's: the MLP runs when any live
-//     lane of the warp is inside the unit sphere (__any_sync), lanes outside
-//     take r - 0.8 as in K1c, and lanes outside, done or past N feed zeros.
+//     add up the quads' partial sums and 1 brings each lane its own value.
+// Row m of an m16n8k8 product depends only on row m of A, and every other
+// step is per point or a fixed-order sum within the point's quad, so a
+// point's value does not depend on its queue neighbours (nor on the zero
+// rows that pad a warp): where a lane's point lands in the queue does not
+// change its result.
 //
 // Bound. The two contractions are 1,024 of the ~1,250 flops of a bunny
 // lane-trip inside the support (utils/speedlight.py); on the tensor cores
 // they cost ~6 ps a lane-trip even in three passes. What stays on the FP32
 // pipes is dominated by the 48 libdevice sinf (range reduction and a
 // polynomial each, tens of instructions), then the first layer, the
-// residuals and the loop, so the kernel stays bound by FP32 issue with
-// about 1,000 fewer instructions than K1c a lane-trip inside the sphere,
-// plus the lock step's tax: a warp runs the trips of its longest lane, and
-// the MLP for 32 lanes when one needs it.
+// residuals and the loop: FP32 issue, with the pool's notes on how the
+// slots are kept busy.
 //
 // Numerics: -fmad=false as march.cu; the analytic parts round as the plain
 // march does, the MLP differs from the plain K1d march (the matmul form,
 // sdf.bunny_mlp_eval) in summation order and in the TF32 split.
 
 #include "march_common.cuh"
+#include "march_pool.cuh"
 
 namespace {
 
@@ -187,61 +194,26 @@ __device__ __forceinline__ float bunny_mlp_warp(const float* w, float px,
          wl[32 * kRowBias];
 }
 
-template <int POLICY, int CRIT, bool BOUND>
-__global__ void __launch_bounds__(256) march_mxu_kernel(const MarchArgs a) {
-  __shared__ float sp[kMaxObjects * kParamUsed];
-  __shared__ int st[kMaxObjects];
-  __shared__ float sw[kPackRows * 32];
-  stage_scene(a, sp, st);
-  for (int k = threadIdx.x; k < kPackRows * 32; k += blockDim.x) {
-    sw[k] = a.bunny[k];
+// K1d's engine for the pool: queue entries 32 w .. 32 w + 31 on warp w,
+// the last warp padded with zero points.
+struct MxuMlp {
+  static constexpr int kWeights = kPackRows * 32;
+  // 4 blocks an SM, 64 registers with a few spilled: the fastest of 2-5
+  // on the H100 (the MLP's latency wants the warps more than registers)
+  static constexpr int kMinBlocks = 4;
+  __device__ static void run(const float* w, const float* qx,
+                             const float* qy, const float* qz, float* qr,
+                             int nq) {
+    const int q = threadIdx.x;
+    if ((q & ~31) >= nq) return;  // uniform over the warp
+    const bool real = q < nq;
+    const float m = bunny_mlp_warp(w, real ? qx[q] : 0.0f,
+                                   real ? qy[q] : 0.0f, real ? qz[q] : 0.0f);
+    if (real) qr[q] = m;
   }
-  __syncthreads();
-
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool real = lane < a.n;
-  // lanes past N march along as done lanes with inert inputs: the warp's
-  // products need all 32
-  Lane L = real ? load_lane(a, lane)
-                : Lane{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
-                       0.0f, 0.0f, 0.0f, 0,    0,    true, 0};
-  const float bound2 = BOUND ? a.params[kBoundCol] : 0.0f;
-  for (int i = 0; i < a.budget; ++i) {
-    if (!__any_sync(kFull, !L.done)) break;
-    const float x = L.ox + L.t * L.dx, y = L.oy + L.t * L.dy,
-                z = L.oz + L.t * L.dz;
-    float best = 1e3f;  // running min of |sd|: first object wins ties
-    int best_i = 0;
-    for (int o = 0; o < a.n_obj; ++o) {
-      const float* pr = sp + o * kParamUsed;
-      float px, py, pz;
-      to_local(pr, x, y, z, px, py, pz);
-      float dist;
-      if (st[o] == kBunny) {  // uniform across the warp
-        const float r = sqrtf(px * px + py * py + pz * pz);
-        const bool mlp = !L.done && !(r > 1.0f);
-        float sd = r - 0.8f;
-        if (__any_sync(kFull, mlp)) {
-          const float m = bunny_mlp_warp(sw, mlp ? px : 0.0f,
-                                         mlp ? py : 0.0f, mlp ? pz : 0.0f);
-          if (mlp) sd = m;
-        }
-        dist = fabsf(sd);
-      } else {
-        dist = fabsf(sd_shape(st[o], px, py, pz, pr[3], pr[4], pr[5],
-                              a.box_round));
-      }
-      if (dist < best) {
-        best = dist;
-        best_i = o;
-      }
-    }
-    if (!L.done) {
-      advance<POLICY, CRIT, BOUND>(L, a, bound2, x, y, z, best, best_i, i);
-    }
-  }
-  if (real) store_lane(a, lane, L);
-}
+  // rows run(nq) issues: whole warps
+  __device__ static int rows(int nq) { return (nq + 31) & ~31; }
+};
 
 __global__ void __launch_bounds__(256)
     bunny_mlp_kernel(const float* pack, const float* p, float* out, int n) {
@@ -258,26 +230,21 @@ __global__ void __launch_bounds__(256)
   if (real) out[i] = m;
 }
 
-struct LaunchMxu {
-  template <int P, int C, bool B>
-  static int launch(const MarchArgs& a, int block, cudaStream_t s) {
-    if (!a.bunny || block % 32 != 0) return (int)cudaErrorInvalidValue;
-    const int grid = (a.n + block - 1) / block;
-    march_mxu_kernel<P, C, B><<<grid, block, 0, s>>>(a);
-    return (int)cudaGetLastError();
-  }
-};
-
 }  // namespace
 
 extern "C" {
 
 int rt_march_max_objects() { return rt::kMaxObjects; }
 
+// K1d's persistent grid: blocks of 256 slots that fit on an SM, and SMs.
+int rt_pool_occupancy(int* per_sm, int* sms) {
+  return rt::pool_occupancy<MxuMlp>(per_sm, sms);
+}
+
 // K1d, with march.cu's C entry: bunny is the (64, 32) f32 block of
-// pack_bunny_mxu and may not be null.
+// pack_bunny_mxu and may not be null; next_lane, counts and block as K1c's.
 int rt_march(RT_MARCH_PARAMS) {
-  return rt::march_entry<LaunchMxu>(RT_MARCH_ARGS);
+  return rt::march_entry<rt::PoolLaunch<MxuMlp>>(RT_MARCH_ARGS);
 }
 
 // K1d's device MLP alone over n points (n, 3) f32 -> out (n,) f32, the raw

@@ -20,11 +20,18 @@ All have the active gate and the resume from ``(t, w, s, d)``.
 What bounds them on an H100: FP32 issue (about 25 flops per analytic
 object per lane-trip; about 1,250 flops and 48 sinf for a bunny lane inside
 the unit sphere), while a lane reads about 41 bytes and writes 29 once
-(``utils/speedlight.march_bound``). K1a-K1c answer with one thread per
-lane and a per-lane loop exit, the scene and the MLP weights staged once
-per block in shared memory, and the MLP run per lane only inside its
-support; K1d marches a warp in lock step and moves the MLP's contractions
-to ``mma.sync``.
+(``utils/speedlight.march_bound``). K1a and K1b answer with one thread per
+lane and a per-lane loop exit, the scene staged once per block in shared
+memory. K1c and K1d share a persistent lane pool (``csrc/march_pool.cuh``):
+as many blocks as fit on the card, each of :data:`POOL_SLOTS` slots that
+take the next lane from a counter when their lane is done and march on
+their own until their point lies inside a bunny's unit sphere; then a
+compacted queue of those points, on which alone the MLP runs, spread over
+the block (K1c: FP32 chains, an entry a thread; K1d: ``mma.sync``, 32
+entries a warp).
+
+The wrapper packs a scene for the kernels (:func:`scene_packs`) once per
+``Scene`` object and keeps the packs on it: a frame's calls share them.
 
 The plain PyTorch version is ``ops/march.march_resumable_plain``;
 ``ops/march.march_resumable`` sends CPU tensors there and CUDA tensors here.
@@ -45,6 +52,8 @@ from ..ops.sdf import SHAPE
 from . import build
 
 BLOCK = 256
+# lanes a block of K1c or K1d holds at once (csrc/march_pool.cuh)
+POOL_SLOTS = 256
 
 # Kernel launches made by march_resumable_cuda, per variant: plain
 # counters that a run resets and reads to show which path it went through.
@@ -68,17 +77,19 @@ def reset_launches() -> None:
 
 def load(source: str = "march"):
     """Build if needed, then load ``csrc/<source>.cu`` and declare its C
-    ABI (both march sources export ``rt_march`` and
-    ``rt_march_max_objects``; ``march_mxu`` also ``rt_bunny_mlp_mxu``)."""
+    ABI (both march sources export ``rt_march``, ``rt_march_max_objects``
+    and ``rt_pool_occupancy``; ``march_mxu`` also ``rt_bunny_mlp_mxu``)."""
     if source not in _libs:
         lib = build.load(source)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rt_march.argtypes = ([p, p, p, i, f, p, p, p, p, p, p, p, f, f,
-                                  f, f, f, f, i, i, i, i, i] + [p] * 8
+                                  f, f, f, f, i, i, i, i, i] + [p] * 10
                                  + [i, p])
         lib.rt_march.restype = i
         lib.rt_march_max_objects.argtypes = []
         lib.rt_march_max_objects.restype = i
+        lib.rt_pool_occupancy.argtypes = [p, p]
+        lib.rt_pool_occupancy.restype = i
         if source == "march_mxu":
             lib.rt_bunny_mlp_mxu.argtypes = [p, p, p, i, i, p]
             lib.rt_bunny_mlp_mxu.restype = i
@@ -180,6 +191,54 @@ def pack_bunny_mxu(scene) -> torch.Tensor:
     return torch.where(kind == 1, big, torch.where(kind == 2, small, v))
 
 
+# the variants whose kernel reads a pack of the bunny's weights: the pool
+_POOLED = ("k1c", "k1d")
+
+
+def _pack_sources(scene):
+    return ((scene.position, scene.scale, scene.matrix, scene.local_offset)
+            + (tuple(scene.bunny) if scene.has_bunny else ()))
+
+
+def scene_packs(scene, kind: str, cfg: RenderConfig):
+    """``(bound2, params, bunny)`` for variant ``kind``'s kernel:
+    ``scene.escape_bound2`` (None without the test), :func:`pack_scene`
+    with it, and the bunny's pack (:func:`pack_bunny` for K1c,
+    :func:`pack_bunny_mxu` for K1d, else None), each contiguous.
+
+    Computed once per scene object and kept on it, so the calls of a frame
+    share them and the packs die with the scene. ``make_scene``, ``bake``
+    and ``animate`` return new scenes; a buffer the scene replaces
+    (``scene.to``) is seen by identity and packs anew."""
+    key = (kind if kind in _POOLED else None,
+           scenelib.has_escape_bound(scene, cfg))
+    sources = _pack_sources(scene)
+    cache = scene.__dict__.setdefault("_march_packs", {})
+    hit = cache.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], sources)):
+        return hit[1]
+    bound2 = scenelib.escape_bound2(scene, cfg)
+    params = pack_scene(scene, bound2).contiguous()
+    pack = {"k1c": pack_bunny, "k1d": pack_bunny_mxu}.get(key[0])
+    bunny = None if pack is None else pack(scene).contiguous()
+    cache[key] = (sources, (bound2, params, bunny))
+    return bound2, params, bunny
+
+
+def pool_occupancy(kind: str):
+    """``(blocks per SM, SMs)`` of the persistent grid of K1c or K1d on the
+    current card (of the CONSTANT + RELATIVE instance the bunny paths run,
+    on a one-object scene): the grid is their product, capped at a block
+    per :data:`POOL_SLOTS` lanes."""
+    lib = load(_SOURCE[kind])
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.rt_pool_occupancy(ctypes.byref(per_sm), ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query of {kind} failed: CUDA error "
+                           f"{rc}")
+    return per_sm.value, sms.value
+
+
 def variant(scene, cfg: RenderConfig) -> str:
     """The kernel that marches this scene under this config: ``k1a``,
     ``k1b``, ``k1c`` or ``k1d``. Raises NotImplementedError for what none
@@ -206,13 +265,18 @@ def _vec(x: torch.Tensor, n: int, dtype, name: str) -> torch.Tensor:
 
 def march_resumable_cuda(scene, origin: torch.Tensor,
                          direction: torch.Tensor, cfg: RenderConfig,
-                         active=None, init=None):
+                         active=None, init=None,
+                         counts: Optional[torch.Tensor] = None):
     """Budget-capped resumable march on the card through K1a-K1d.
 
     Same contract as ``ops/march.march_resumable``; returns the tuple
     ``(t, index, hit, fin, w, s, d, done)`` (f32, i32, bool, i32, f32, f32,
     f32, i32), each (N,). Raises NotImplementedError for variants no
-    kernel serves."""
+    kernel serves. ``counts``: for K1c and K1d, an optional (2,) int64 CUDA
+    tensor the kernel adds to: the MLP evaluations it ran (queue entries,
+    with the rows that pad a warp) and the lane slots of its warps' march
+    steps (32 a warp and step: the lane-trips a warp spent issue slots on);
+    the render path passes none."""
     kind = variant(scene, cfg)
     if not (origin.is_cuda and direction.is_cuda):
         raise ValueError("march_resumable_cuda takes CUDA tensors")
@@ -231,10 +295,14 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
             f"{lib.rt_march_max_objects()} in shared memory")
     origin = origin.contiguous()
     direction = direction.contiguous()
-    bound2 = scenelib.escape_bound2(scene, cfg)
-    params = pack_scene(scene, bound2).contiguous()
-    bunny = {"k1c": pack_bunny, "k1d": pack_bunny_mxu}.get(kind)
-    bunny = None if bunny is None else bunny(scene).contiguous()
+    bound2, params, bunny = scene_packs(scene, kind, cfg)
+    pooled = kind in _POOLED
+    if counts is not None and not (
+            pooled and counts.shape == (2,) and counts.dtype == torch.int64
+            and counts.device == origin.device):
+        raise ValueError(f"counts: a (2,) int64 tensor on {origin.device} "
+                         f"for K1c or K1d; got {tuple(counts.shape)} "
+                         f"{counts.dtype} on {counts.device} for {kind}")
     act = None if active is None else _vec(active, n, torch.bool, "active")
     inits = (None,) * 4 if init is None else tuple(
         _vec(v, n, torch.float32, k) for v, k in zip(init, "twsd"))
@@ -247,6 +315,8 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
 
     if n == 0:
         return t, idx, hit, fin, w, s, d, done
+    # the pool's counter of lanes handed out
+    next_lane = (torch.zeros((1,), **i32) if pooled else None)
     ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(origin.device):
         stream = torch.cuda.current_stream(origin.device).cuda_stream
@@ -261,7 +331,8 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
             _POLICY[cfg.omega_policy], _CRIT[cfg.hit_criterion],
             int(bound2 is not None),
             cfg.max_raymarch, n, ptr(t), ptr(idx), ptr(hit), ptr(fin),
-            ptr(w), ptr(s), ptr(d), ptr(done), BLOCK, stream)
+            ptr(w), ptr(s), ptr(d), ptr(done), ptr(next_lane), ptr(counts),
+            BLOCK, stream)
     if rc != 0:
         raise RuntimeError(f"march kernel {kind} launch failed: CUDA error "
                            f"{rc}")

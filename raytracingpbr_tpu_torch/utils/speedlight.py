@@ -9,15 +9,20 @@ the flop model and imports nothing of the JAX package).
 2. :func:`measure_vpu_peak` — the JAX name is kept: on the H100 it is the
    measured FP32 FFMA roof, through kernel K2 (``kernels/fma_kernel``).
 3. :func:`march_utilization` — one budgeted march through the kernels,
-   timed on the card, with the lane-trips it needed and the ones its warps
+   timed on the card, with the lane-trips it needed and the ones the card
    executed, and :func:`march_bound`, the least time the card could take
    for the same work.
 
-A warp runs in lock step, so a warp executes 32 lanes times the trips of
-its longest lane; the TPU's (8, 128) tiles and chunk rounding have no
-counterpart here. The published peaks are those of one H100 SXM at its
-700 W limit (NVIDIA's data sheet): 67 TFLOP/s FP32, 495 TFLOP/s TF32
-(dense), 3.35 TB/s.
+A warp runs in lock step. In K1a and K1b a thread keeps one lane for the
+call, so a warp executes 32 lanes times the trips of its longest lane
+(:func:`warp_executed`). K1c and K1d keep a persistent pool of slots and
+count what they run themselves (``march_kernel.march_resumable_cuda``'s
+``counts``): the lane slots of their warps' march steps, and MLP
+evaluations (queue entries, with a warp's padding), which :func:`mlp_work`
+holds against the lane-trips that needed the MLP. The TPU's (8, 128)
+tiles and chunk rounding have no counterpart here. The published peaks are
+those of one H100 SXM at its 700 W limit (NVIDIA's data sheet): 67
+TFLOP/s FP32, 495 TFLOP/s TF32 (dense), 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import torch
 
 from ..config import RenderConfig
 from ..core.device import resolve
-from ..kernels import fma_kernel
+from ..kernels import fma_kernel, march_kernel
 from ..ops import march as marchlib
 from ..ops import sdf as sdflib
 from ..ops.sdf import SHAPE
@@ -142,10 +147,12 @@ def warp_executed(fin: torch.Tensor) -> int:
 def support_lane_trips(scene, origin, direction, cfg: RenderConfig,
                        active=None, init=None):
     """``(inside, warp_inside)`` for one budgeted march, counted by the
-    plain march on the same inputs: the lane-trips whose point lies inside
-    a bunny's unit sphere, where the MLP runs, and the lane-trips of warps
-    with at least one such lane (32 each: what K1d's lock-step MLP runs).
-    Both 0 for a scene without the bunny. For the work accounting only."""
+    plain march on the same inputs: the (lane, bunny) trips whose point
+    lies inside a bunny's unit sphere, where the MLP runs, and the
+    lane-trips of warps of 32 consecutive lanes with at least one such lane
+    (32 each: what a march that keeps a lane on one thread and runs the MLP
+    for the whole warp would run). Both 0 for a scene without the bunny.
+    For the work accounting only."""
     bunnies = [i for i, t in enumerate(scene.shape_types)
                if t == SHAPE.BUNNY]
     counts = torch.zeros(2, dtype=torch.int64, device=origin.device)
@@ -169,6 +176,20 @@ def support_lane_trips(scene, origin, direction, cfg: RenderConfig,
     marchlib.march_resumable_plain(scene, origin, direction, cfg, active,
                                    init, on_trip=on_trip)
     return int(counts[0]), int(counts[1])
+
+
+def mlp_work(support: int, executed: int) -> dict:
+    """The bunny MLP's work in one march: ``support`` (lane, bunny) trips
+    needed it (:func:`support_lane_trips`), the kernel ran ``executed``
+    evaluations (its count: queue entries with a warp's padding). Raises
+    if the kernel ran fewer than were needed: it skipped an MLP."""
+    if executed < support:
+        raise AssertionError(f"the kernel ran {executed} MLP evaluations "
+                             f"for {support} needed")
+    return {"support_lane_iters": support,
+            "mlp_lane_iters_executed": executed,
+            "mlp_padding_pct": (100.0 * (executed / support - 1.0)
+                                if support else 0.0)}
 
 
 def march_bound(scene, cfg: RenderConfig, fin: torch.Tensor, support: int,
@@ -199,6 +220,19 @@ def march_bound(scene, cfg: RenderConfig, fin: torch.Tensor, support: int,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
+def executed_counts(scene, origin, direction, cfg: RenderConfig,
+                    active=None, init=None):
+    """``(lane-trips executed, MLP evaluations)`` that K1c or K1d runs on
+    these inputs, from one launch with its ``counts``: 32 for each warp and
+    march step, and the queue entries the MLP ran, with a warp's padding.
+    For the work accounting only."""
+    counts = torch.zeros((2,), dtype=torch.int64, device=origin.device)
+    march_kernel.march_resumable_cuda(scene, origin, direction, cfg,
+                                      active=active, init=init,
+                                      counts=counts)
+    return int(counts[1]), int(counts[0])
+
+
 def march_utilization(scene, origin, direction, cfg: RenderConfig,
                       active=None, init=None, reps: int = 10) -> dict:
     """Time one budgeted march (``cfg.max_raymarch`` trips) through the
@@ -208,8 +242,11 @@ def march_utilization(scene, origin, direction, cfg: RenderConfig,
     ``utilization_pct`` is the needed work's achieved rate (support-counted
     flops over the measured time) over the measured roof;
     ``fp32_peak_pct`` the same over the published 67 TFLOP/s;
-    ``divergence_tax_pct`` the share of executed lane-trips
-    (:func:`warp_executed`) that no lane needed."""
+    ``divergence_tax_pct`` the share of executed lane-trips that no lane
+    needed: as K1c and K1d count them (:func:`executed_counts`),
+    :func:`warp_executed` for K1a and K1b. For the bunny, :func:`mlp_work`
+    of the kernel's MLP count, and ``mlp_warp_lane_iters``, what a
+    warp-per-32-lanes MLP would run on the same inputs."""
     if cfg.march_compaction:
         raise NotImplementedError(
             "cfg.march_compaction (the phased march) is not ported: "
@@ -227,9 +264,14 @@ def march_utilization(scene, origin, direction, cfg: RenderConfig,
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / reps
-    executed = warp_executed(res.fin)
     support, warp_support = support_lane_trips(scene, origin, direction, cfg,
                                                active, init)
+    if march_kernel.variant(scene, cfg) in ("k1c", "k1d"):
+        executed, mlp_executed = executed_counts(scene, origin, direction,
+                                                 cfg, active, init)
+        mlp = mlp_work(support, mlp_executed)
+    else:
+        executed, mlp = warp_executed(res.fin), mlp_work(support, support)
     bound = march_bound(scene, cfg, res.fin, support, active, init)
     peak = measure_vpu_peak()
     achieved = bound["flops"] / (ms / 1e3)
@@ -238,7 +280,7 @@ def march_utilization(scene, origin, direction, cfg: RenderConfig,
         "march_ms": ms,
         "lane_iters_executed": executed,
         "lane_iters_needed": needed,
-        "support_lane_iters": support,
+        **mlp,
         "mlp_warp_lane_iters": warp_support,
         "flops_per_iter": march_flops_per_iter(scene, cfg),
         "achieved_gflops": achieved / 1e9,

@@ -11,8 +11,12 @@ equal index where both hit, t within rtol and atol 1e-3 where hit agrees
 save a decision one trip apart and at most one grazing lane in
 10,000), and its MLP alone to 1e-6 of a float64 evaluation. K2's FFMA
 rounds once where the plain version's multiply and add round twice: rtol
-1e-5. These tests need a CUDA device and skip without one; this file
-imports no jax, so it runs on a machine that has only PyTorch:
+1e-5. K1c and K1d march on a persistent lane pool (``csrc/march_pool.cuh``)
+whose lane order follows atomics: their tests cover lane counts around one
+grid's slots, a skewed state, repeat runs, scenes whose bunny is not last or
+that hold two, and K1d's MLP on permuted points. These tests need a CUDA
+device and skip without one; this file imports no jax, so it runs on a
+machine that has only PyTorch:
 
     python -m pytest -p no:cacheprovider --noconftest \
         tests/test_torch_kernel.py
@@ -27,8 +31,10 @@ from raytracingpbr_tpu_torch.kernels import fma_kernel, march_kernel
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import camera as tcamera
 from raytracingpbr_tpu_torch.ops import march as tmarch
-from raytracingpbr_tpu_torch.ops.scene import ObjectSpec, make_scene
+from raytracingpbr_tpu_torch.ops.scene import (_BUFFERS, ObjectSpec, Scene,
+                                                bucket_layout, make_scene)
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE, BunnyMLP, bunny_mlp_eval
+from raytracingpbr_tpu_torch.utils import speedlight
 
 from .torch_helpers import cuda_device, random_rays  # noqa: F401
 
@@ -311,3 +317,161 @@ def test_k2_matches_plain(cuda_device, chains, unroll):
     assert fma_kernel.LAUNCHES["k2"] == before + 1
     ref = fma_kernel.fma_chains_plain(x, 64, chains, unroll)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+
+
+# --- the persistent lane pool of K1c and K1d ---------------------------------
+
+
+def _aimed_rays(n, seed, device):
+    """Rays from around (0, 0, 2.5) aimed at the bunny with a spread."""
+    o, _ = _rays(n, seed, (0.0, 0.0, 2.5), 0.1, device)
+    d = -o + 0.35 * torch.randn(o.shape, generator=torch.Generator(
+        device).manual_seed(seed), device=device)
+    return o, d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+
+
+def _check(scene, o, d, cfg, active=None, init=None):
+    """The kernel against the plain march: K1c bit-equal, K1d within the
+    march bar."""
+    k, p = both(scene, o, d, cfg, active=active, init=init)
+    if cfg.bunny_mxu:
+        tmarch.assert_march_close(scene, o, d, k, p, cfg)
+    else:
+        assert_bit_equal(k, p)
+    return k
+
+
+def _grid_slots(kind):
+    per_sm, sms = march_kernel.pool_occupancy(kind)
+    assert per_sm >= 1 and sms >= 1
+    return per_sm * sms * march_kernel.POOL_SLOTS
+
+
+@pytest.mark.parametrize("n", [1, 31, 257, "slots-3", "slots+5", 4097])
+@pytest.mark.parametrize("kind", ["k1c", "k1d"])
+def test_pool_lane_counts(cuda_device, kind, n):
+    """Lane counts under, at and over one persistent grid's slots: fresh,
+    gated and resumed calls."""
+    if isinstance(n, str):
+        n = _grid_slots(kind) + int(n[5:])
+    scene = bunny.glass_scene(cuda_device)
+    cfg = bunny.glass_config(8).replace(max_raymarch=32,
+                                        bunny_mxu=kind == "k1d")
+    o, d = _rays(n, n % 1000, (0.0, 0.0, 2.0), 0.5, cuda_device)
+    k = _check(scene, o, d, cfg)
+    rng = np.random.default_rng(n)
+    active = torch.as_tensor(rng.random(n) < 0.5, device=cuda_device)
+    _check(scene, o, d, cfg, active=active, init=(k.t, k.w, k.s, k.d))
+
+
+def _skewed(scene, o, d, cfg):
+    """Half the lanes gated; a quarter resumed from where a first call hit
+    (one more trip); a quarter fresh with omega 0.01 (the whole budget).
+    Lanes of the kinds interleave, so every warp of 32 holds all four."""
+    n = o.shape[0]
+    k0 = tmarch.ResumableResult(*march_kernel.march_resumable_cuda(
+        scene, o, d, cfg))
+    g = torch.arange(n, device=o.device) % 4
+    one, slow = (g == 2) & k0.hit, g == 3
+    full = lambda v: torch.full((n,), v, dtype=torch.float32, device=o.device)
+    init = (torch.where(one, k0.t, full(cfg.march_t0)),
+            torch.where(one, k0.w, torch.where(slow, full(0.01),
+                                               full(cfg.omega))),
+            torch.where(one, k0.s, full(0.0)),
+            torch.where(one, k0.d, full(1e3)))
+    return one | slow, init, one, slow
+
+
+@pytest.mark.parametrize("kind", ["k1c", "k1d"])
+def test_pool_skewed_state_repeatable(cuda_device, kind):
+    """On a skewed state the pool's warps march fewer lane slots than warps
+    that keep their lanes, and run fewer MLP evaluations, at least one per
+    needed (lane, trip); two runs on the same inputs are bit-identical."""
+    scene = bunny.glass_scene(cuda_device)
+    cfg = bunny.glass_config(8).replace(max_raymarch=32,
+                                        bunny_mxu=kind == "k1d")
+    o, d = _aimed_rays(16 * _grid_slots(kind), 11, cuda_device)
+    active, init, one, slow = _skewed(scene, o, d, cfg)
+    k = _check(scene, o, d, cfg, active=active, init=init)
+    assert float((k.fin[one] == 1).float().mean()) > 0.9
+    assert float((k.fin[slow] == 32).float().mean()) > 0.9
+    assert int(k.fin[~active].sum()) == 0
+    again = march_kernel.march_resumable_cuda(scene, o, d, cfg,
+                                              active=active, init=init)
+    assert_bit_equal(k, again)
+    executed, mlp = speedlight.executed_counts(scene, o, d, cfg, active,
+                                               init)
+    needed = int(k.fin.sum())
+    assert needed <= executed
+    assert 4 * executed < 3 * speedlight.warp_executed(k.fin)
+    support, warp_support = speedlight.support_lane_trips(scene, o, d, cfg,
+                                                          active, init)
+    assert support <= mlp < warp_support
+    speedlight.mlp_work(support, mlp)
+
+
+def reordered(scene, order):
+    """The scene with its objects in ``order``: ``make_scene`` sorts by
+    shape type, which puts the bunnies last."""
+    types = tuple(scene.shape_types[i] for i in order)
+    splits, buckets = bucket_layout(types)
+    idx = torch.tensor(order, device=scene.device)
+    return Scene(types, splits, buckets, scene.box_round,
+                 tuple(scene.rot_perm[i] for i in order), bunny=scene.bunny,
+                 **{k: getattr(scene, k)[idx] for k in _BUFFERS})
+
+
+def _bunny_spec(pos, rot=(-90, 0, 0)):
+    return ObjectSpec(SHAPE.BUNNY, pos, rot, (1, 1, 1))
+
+
+POOL_SCENES = {
+    # bunny, sphere, box: the bunny first
+    "bunny_first": ([_bunny_spec((0, 0, 0)),
+                     ObjectSpec(SHAPE.SPHERE, (0.9, 0.2, 0.0), (0, 0, 0),
+                                (0.3,) * 3),
+                     ObjectSpec(SHAPE.BOX, (-0.9, -0.3, 0.2), (10, 30, 0),
+                                (0.25, 0.2, 0.3))], [2, 0, 1]),
+    # bunny, sphere, bunny, plane: two bunnies whose unit spheres overlap
+    "two_bunnies": ([_bunny_spec((-0.55, 0.0, 0.0)),
+                     _bunny_spec((0.6, 0.1, -0.2), (-90, 40, 0)),
+                     ObjectSpec(SHAPE.SPHERE, (0.0, 0.8, 0.0), (0, 0, 0),
+                                (0.25,) * 3),
+                     ObjectSpec(SHAPE.PLANE, (0, -1.0, 0), (0, 0, 0),
+                                (1, 0.0, 1))], [2, 0, 3, 1]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_SCENES))
+@pytest.mark.parametrize("kind", ["k1c", "k1d"])
+def test_pool_object_order(cuda_device, kind, case):
+    """The fold of the MLP results keeps the object order: a bunny before
+    the analytic objects, and two bunnies, against the plain march."""
+    specs, order = POOL_SCENES[case]
+    scene = reordered(make_scene(specs, device=cuda_device), order)
+    assert scene.shape_types[0] == SHAPE.BUNNY
+    cfg = bunny.glass_config(8).replace(max_raymarch=64,
+                                        bunny_mxu=kind == "k1d")
+    assert march_kernel.variant(scene, cfg) == kind
+    o, d = _aimed_rays(8192, 5, cuda_device)
+    k = _check(scene, o, d, cfg)
+    hit = k.index[k.hit.bool()]
+    bunnies = [i for i, t in enumerate(scene.shape_types)
+               if t == SHAPE.BUNNY]
+    assert all(bool((hit == i).any()) for i in bunnies)
+    _check(scene, o, d, cfg.replace(escape_bound=True))
+
+
+def test_k1d_mlp_permuted_points_bit_for_bit(cuda_device):
+    """A point's value does not depend on its warp neighbours: the MLP of a
+    permuted point set is the permuted MLP, bit for bit."""
+    scene = bunny.glass_scene(cuda_device)
+    p = unit_ball(4097, 7, cuda_device)
+    got = march_kernel.bunny_mlp_mxu(scene, p)
+    perm = torch.randperm(p.shape[0], generator=torch.Generator().manual_seed(
+        7)).to(cuda_device)
+    assert torch.equal(march_kernel.bunny_mlp_mxu(scene, p[perm]), got[perm])
+    # and beside zero rows, as the last warp of a queue pads them
+    padded = torch.cat([p[:5], torch.zeros((27, 3), device=cuda_device)])
+    assert torch.equal(march_kernel.bunny_mlp_mxu(scene, padded)[:5],
+                       got[:5])

@@ -12,6 +12,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from raytracingpbr_tpu.core import rng as jrng
 from raytracingpbr_tpu.models import cornell as jcornell
@@ -227,3 +228,75 @@ def test_pack_scene_layout():
                                   nn(scene.matrix).reshape(-1, 9))
     np.testing.assert_array_equal(p[:, 15:18], nn(scene.local_offset))
     assert (p[:, 18:] == 0).all()
+
+
+def _count_packs(monkeypatch):
+    """Counts the calls of the functions the kernels' packs come from."""
+    calls = {}
+    for mod, name in ((march_kernel, "pack_scene"),
+                      (march_kernel, "pack_bunny"),
+                      (march_kernel, "pack_bunny_mxu"),
+                      (march_kernel.scenelib, "escape_bound2")):
+        calls[name] = 0
+
+        def counted(*a, _fn=getattr(mod, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["k1c", "k1d"])
+def test_scene_packs_once_per_scene(monkeypatch, kind):
+    """A frame's four calls on one scene share one set of packs; the
+    boundless config packs apart, and a buffer the scene replaces packs
+    anew."""
+    calls = _count_packs(monkeypatch)
+    scene = tbunny.glass_scene(CPU)
+    cfg = tbunny.glass_config().replace(escape_bound=True,
+                                        bunny_mxu=kind == "k1d")
+    assert march_kernel.variant(scene, cfg) == kind
+    first = march_kernel.scene_packs(scene, kind, cfg)
+    for _ in range(3):
+        again = march_kernel.scene_packs(scene, kind, cfg)
+        assert all(a is b for a, b in zip(first, again))
+    assert calls == {"pack_scene": 1, "pack_bunny": int(kind == "k1c"),
+                     "pack_bunny_mxu": int(kind == "k1d"),
+                     "escape_bound2": 1}
+    bound2, params, bunny = first
+    assert params.is_contiguous() and bunny.is_contiguous()
+    direct = (march_kernel.pack_bunny if kind == "k1c"
+              else march_kernel.pack_bunny_mxu)(scene)
+    assert torch.equal(bunny, direct)
+    assert torch.equal(params, march_kernel.pack_scene(scene, bound2))
+    assert float(params[0, 18]) == float(bound2) > 0.0
+    calls["pack_scene"] = 0
+
+    free = march_kernel.scene_packs(scene, kind,
+                                    cfg.replace(escape_bound=False))
+    assert free[0] is None and float(free[1][0, 18]) == 0.0
+    assert march_kernel.scene_packs(scene, kind, cfg)[1] is params
+    scene.position = scene.position + 0.25  # as scene.to() replaces it
+    moved = march_kernel.scene_packs(scene, kind, cfg)
+    assert moved[1] is not params
+    assert torch.equal(moved[1][:, 0:3], scene.position)
+    assert calls["pack_scene"] == 2
+
+
+def test_animated_scene_gets_fresh_packs():
+    """``animate`` to another frame is a new scene: its packs are its own
+    and equal a direct packing of it."""
+    from raytracingpbr_tpu_torch.ops import scene as tscenelib
+    base = tbunny.glass_scene(CPU)
+    cfg = tbunny.glass_config()
+    s12 = tscenelib.animate(base, 12.0)
+    p12 = march_kernel.scene_packs(s12, "k1c", cfg)
+    s13 = tscenelib.animate(base, 13.0)
+    for kind, pack in (("k1c", march_kernel.pack_bunny),
+                       ("k1d", march_kernel.pack_bunny_mxu)):
+        bound2, params, bunny = march_kernel.scene_packs(s13, kind, cfg)
+        assert bound2 is None
+        assert torch.equal(params, march_kernel.pack_scene(s13))
+        assert torch.equal(bunny, pack(s13))
+    assert not torch.equal(params, p12[1])  # the spin moved the matrix
+    assert torch.equal(march_kernel.scene_packs(s12, "k1c", cfg)[1], p12[1])

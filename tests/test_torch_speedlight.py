@@ -7,6 +7,8 @@ plain version of kernel K2 (``kernels/fma_kernel.py``).
   for the trips of its longest lane.
 * The support count (lane-trips inside the bunny's unit sphere, where the
   MLP runs) equals a trip-by-trip replay of the same march.
+* The MLP work reports the kernel's count of evaluations beside the needed
+  count, and raises where the kernel ran fewer.
 * K2's plain version is the numpy recurrence, and stays within 1e-5 of a
   float64 one: the recurrence contracts, so rounding does not grow.
 * What needs the card raises without one.
@@ -140,6 +142,28 @@ def test_support_count_equals_trip_by_trip_replay():
     assert none == (0, 0)
     assert speedlight.support_lane_trips(tcornell.full_scene(CPU), o, d,
                                          cfg) == (0, 0)
+
+
+def test_mlp_work_reports_executed_beside_support():
+    """The kernel's MLP count is reported beside the needed count. By hand:
+    rays straight down the z axis into the bunny's sphere from z = 1.5 at
+    t0 = 0.25, omega 0.5 and a distance of r - 0.8 outside it: z = 1.25,
+    1.025, 0.9125 (inside from the third trip), so 3 lanes x budget 4 need
+    3 x 2 MLP trips; two block-rounds of 3 entries, padded to whole warps,
+    run 64."""
+    scene = tbunny.glass_scene(CPU)
+    cfg = tbunny.glass_config().replace(max_raymarch=4, march_t0=0.25)
+    o = tt(np.tile([[0.0, 0.0, 1.5]], (3, 1)).astype(np.float32))
+    d = tt(np.tile([[0.0, 0.0, -1.0]], (3, 1)).astype(np.float32))
+    support, warp_support = speedlight.support_lane_trips(scene, o, d, cfg)
+    assert (support, warp_support) == (6, 64)
+    w = speedlight.mlp_work(support, 64)
+    assert w["support_lane_iters"] == 6
+    assert w["mlp_lane_iters_executed"] == 64
+    assert w["mlp_padding_pct"] == pytest.approx(100.0 * (64 / 6 - 1))
+    assert speedlight.mlp_work(0, 0)["mlp_padding_pct"] == 0.0
+    with pytest.raises(AssertionError, match="5 MLP evaluations for 6"):
+        speedlight.mlp_work(support, 5)
 
 
 @pytest.mark.parametrize("chains,unroll", fma_kernel.SHAPES)
