@@ -1,14 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--prev DIR]
-
-``--prev DIR``: a checkout of the commit before the bunny kernels' lane pool
-(``csrc/march.cu`` and ``csrc/march_mxu.cu`` of that tree: K1c a thread a
-lane, K1d a warp in lock step). Its two sources are built beside this
-tree's, and its K1c and K1d are timed in turns with this tree's on the same
-inputs (phases 3e and 5, ``prev_ms`` in the kernels' record); without it
-those times are not measured.
+    python3 chip_smoke.py
 
 Phases (each prints what it found; any failure raises and exits non-zero):
 
@@ -17,8 +10,8 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     CPU fallback).
 1.  build every kernel from ``raytracingpbr_tpu_torch/csrc``, one nvcc per
     source started together (march.cu: K1a, K1b, K1c; march_mxu.cu: K1d;
-    speedlight.cu: K2; and ``--prev``'s two), and print what ``-Xptxas -v``
-    says of each library and the persistent grid of K1c and K1d.
+    speedlight.cu: K2), and print what ``-Xptxas -v`` says of each library
+    and the persistent grid of K1c and K1d.
 1b. K2 (the FP32 FMA roof) vs its plain version at a small ragged size
     and on the sweep's own inputs at each of its configurations (rtol
     1e-5: FFMA rounds once, the plain multiply and add twice, and the
@@ -71,9 +64,9 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 3e. the frames' own calls: the four budget-32 march calls recorded in 3b
     (glass, K1c; K1d on the same inputs) and 3c (metal, K1c and K1d, each
     from its own frame). On each: K1c bit-equal to the plain march, K1d
-    within the march bar; the kernel's time (in turns with ``--prev``'s);
-    lane-trips needed and executed, MLP evaluations needed (the support)
-    and run (the kernel's counts), and the bound; then the frame's sums.
+    within the march bar; the kernel's time; lane-trips needed and
+    executed, MLP evaluations needed (the support) and run (the kernel's
+    counts), and the bound; then the frame's sums.
 4.  the ``wavefront_cornell_full`` golden rendered on the card: >= 35 dB.
 4b. the ``wavefront_scene_demo`` golden on the card (K1b's path): >= 35 dB.
 5.  utilization (``bench.py``'s speed-of-light extra): K2's roof (one
@@ -84,22 +77,17 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     glass mixed state at 1920x1080 and the metal path's state at 3840x2160
     after 16 steps, where its timed frames start): lane-trips needed and
     executed, MLP evaluations needed and run, flops, achieved GFLOP/s,
-    the share of K2's roof and of 67 TFLOP/s, and the bound; with
-    ``--prev``, its K1c and K1d in turns with this tree's on the same
-    states.
+    the share of K2's roof and of 67 TFLOP/s, and the bound.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports no jax.
 """
-import argparse
-import ctypes
 import json
 import os
 import statistics
 import subprocess
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -205,89 +193,15 @@ def ptxas_summary(report: str) -> str:
             f"{min(spills)}-{max(spills)} bytes")
 
 
-class PrevKernels:
-    """K1c and K1d of the tree given by ``--prev`` (the commit before the
-    lane pool: K1c a thread a lane, K1d a warp in lock step), built with
-    this tree's flags into ``build/.../prev`` and called through their own
-    C ABI (``rt_march`` without the pool's two pointers) on this tree's
-    packs of the scene. For timing beside this tree's kernels only: no
-    render path calls them and they are counted nowhere."""
-
-    SOURCES = {"k1c": "march", "k1d": "march_mxu"}
-
-    def __init__(self, root):
-        self.csrc = Path(root) / CSRC
-        self.out = build.BUILD_DIR / "prev"
-        self.jobs, self.libs = {}, {}
-
-    def start(self):
-        self.out.mkdir(parents=True, exist_ok=True)
-        for name in set(self.SOURCES.values()):
-            lib = self.out / f"lib{name}.so"
-            log_f = open(f"{lib}.log", "w")
-            self.jobs[name] = (lib, log_f, subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
-                 str(self.csrc / f"{name}.cu")], stdout=log_f,
-                stderr=subprocess.STDOUT))
-
-    def wait(self):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name, (lib, log_f, proc) in self.jobs.items():
-            rc = proc.wait()
-            log_f.close()
-            if rc != 0:
-                raise RuntimeError(f"--prev {name}.cu: nvcc failed ({rc}):\n"
-                                   + Path(f"{lib}.log").read_text())
-            cdll = ctypes.CDLL(str(lib))
-            cdll.rt_march.argtypes = ([p, p, p, i, f, p, p, p, p, p, p, p, f,
-                                       f, f, f, f, f, i, i, i, i, i]
-                                      + [p] * 8 + [i, p])
-            cdll.rt_march.restype = i
-            self.libs[name] = cdll
-            log(f"[1] ptxas --prev {name}.cu: "
-                f"{ptxas_summary(Path(f'{lib}.log').read_text())}")
-
-    def march(self, scene, o, d, cfg, active=None, init=None):
-        kind = march_kernel.variant(scene, cfg)
-        lib = self.libs[self.SOURCES[kind]]
-        bound2, params, bunny = march_kernel.scene_packs(scene, kind, cfg)
-        n = o.shape[0]
-        f32 = dict(dtype=torch.float32, device=o.device)
-        i32 = dict(dtype=torch.int32, device=o.device)
-        t, w, s, dd = (torch.empty((n,), **f32) for _ in range(4))
-        idx, fin, done = (torch.empty((n,), **i32) for _ in range(3))
-        hit = torch.empty((n,), dtype=torch.bool, device=o.device)
-        ptr = lambda x: None if x is None else x.data_ptr()
-        inits = (None,) * 4 if init is None else init
-        rc = lib.rt_march(
-            ptr(params), ptr(scene.type_ids), ptr(bunny), scene.num_objects,
-            scene.box_round, ptr(o), ptr(d), ptr(active),
-            *(ptr(v) for v in inits), cfg.march_t0, cfg.omega,
-            cfg.hit_precision, cfg.max_dis, cfg.pixel_radius, 1.0 + 1e-6,
-            march_kernel._POLICY[cfg.omega_policy],
-            march_kernel._CRIT[cfg.hit_criterion], int(bound2 is not None),
-            cfg.max_raymarch, n, ptr(t), ptr(idx), ptr(hit), ptr(fin),
-            ptr(w), ptr(s), ptr(dd), ptr(done), march_kernel.BLOCK,
-            torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"--prev {kind} launch failed: CUDA error {rc}")
-        return march.ResumableResult(t, idx, hit, fin, w, s, dd, done)
-
-
-def phase_build(prev):
+def phase_build():
     t0 = time.perf_counter()
-    if prev is not None:
-        prev.start()
     paths = build.build_all()
     march_kernel.load("march")
     march_kernel.load("march_mxu")
     fma_kernel.load()
-    if prev is not None:
-        prev.wait()
     secs = time.perf_counter() - t0
     libs = ", ".join(os.path.relpath(p, REPO) for p in paths.values())
-    log(f"[1] built {libs}{' and --prev K1c, K1d' if prev else ''} in "
-        f"{secs:.2f} s (one nvcc per source, in parallel)")
+    log(f"[1] built {libs} in {secs:.2f} s (one nvcc per source, in parallel)")
     for name, label in (("march", "K1a-K1c"), ("march_mxu", "K1d"),
                         ("speedlight", "K2")):
         log(f"[1] ptxas {label} ({name}.cu): "
@@ -858,17 +772,7 @@ def phase_metal_state_vs_plain(scene, env, cam, cfg):
     return (scene, mo, md, minit, cfg), err_c, err_d
 
 
-def time_kernel(run, prev_run, reps=5):
-    """(ms, prev ms or None, the medians): the kernel alone, or in turns
-    new, prev, prev, new with ``--prev``'s."""
-    if prev_run is None:
-        run()
-        ms = median_ms(run, reps)
-        return ms, None, [ms]
-    return in_turns(run, prev_run, reps, reps)
-
-
-def phase_in_frame(glass_calls, metal_calls, prev):
+def phase_in_frame(glass_calls, metal_calls):
     """The frames' own budget-32 march calls (3b's glass frame, 3c's metal
     frames with K1c and with K1d), each against the plain march, timed,
     and counted. Returns {label: the frame's sums}."""
@@ -880,8 +784,8 @@ def phase_in_frame(glass_calls, metal_calls, prev):
             ("metal 3840x2160, K1d", metal, mcalls[True], True))
     out = {}
     for label, scene, calls, mxu in sets:
-        tot = dict(ms=0.0, prev_ms=0.0, bound_ms=0.0, needed=0, slots=0,
-                   support=0, mlp=0, warp_mlp=0, err=0.0, prev_equal=0)
+        tot = dict(ms=0.0, bound_ms=0.0, needed=0, slots=0, support=0,
+                   mlp=0, warp_mlp=0, err=0.0)
         for j, (o, d, act, init, c) in enumerate(calls):
             cfg = c.replace(bunny_mxu=mxu)
             kind = march_kernel.variant(scene, cfg)
@@ -892,9 +796,8 @@ def phase_in_frame(glass_calls, metal_calls, prev):
                 note = "bit-equal"
             run = lambda: march_kernel.march_resumable_cuda(
                 scene, o, d, cfg, active=act, init=init)
-            prev_run = None if prev is None else (
-                lambda: prev.march(scene, o, d, cfg, act, init))
-            ms, prev_ms, meds = time_kernel(run, prev_run)
+            run()
+            ms = median_ms(run, 5)
             slots, mlp = speedlight.executed_counts(scene, o, d, cfg, act,
                                                     init)
             support, warp_mlp = speedlight.support_lane_trips(
@@ -902,19 +805,8 @@ def phase_in_frame(glass_calls, metal_calls, prev):
             work = speedlight.mlp_work(support, mlp)
             b = speedlight.march_bound(scene, cfg, k.fin, support, act, init)
             needed = b["lane_iters_needed"]
-            same = ""
-            if prev is not None:
-                pk = prev.march(scene, o, d, cfg, act, init)
-                diff = sum(int((x != y).sum()) for x, y in zip(k, pk))
-                if diff and not mxu:
-                    raise AssertionError(f"{label} call {j}: K1c and --prev's "
-                                         f"K1c differ on {diff} values")
-                tot["prev_equal"] += diff
-                agree = "bit-equal" if not diff else f"{diff} values apart"
-                same = f"; --prev {prev_ms:.4f} ms, outputs {agree}"
             log(f"[3e] {label} call {j}: {kind.upper()} {note}; "
-                f"{ms:.4f} ms ({', '.join(f'{v:.4f}' for v in meds)})"
-                f"{same}; {o.shape[0]} lanes, "
+                f"{ms:.4f} ms; {o.shape[0]} lanes, "
                 f"{int(act.sum()) if act is not None else o.shape[0]} "
                 f"active; lane-trips needed {needed}, executed {slots}"
                 f" (tax {100 * (1 - needed / max(slots, 1)):.1f}%; warps of "
@@ -924,19 +816,14 @@ def phase_in_frame(glass_calls, metal_calls, prev):
                 f"warps of 32 fixed lanes: {warp_mlp}); bound "
                 f"{b['bound_ms']:.4f} "
                 f"ms ({b['bound_by']}), {100 * b['bound_ms'] / ms:.2f}%")
-            for key, v in (("ms", ms), ("prev_ms", prev_ms or 0.0),
-                           ("bound_ms", b["bound_ms"]), ("needed", needed),
-                           ("slots", slots), ("support", support),
+            for key, v in (("ms", ms), ("bound_ms", b["bound_ms"]),
+                           ("needed", needed), ("slots", slots),
+                           ("support", support),
                            ("mlp", mlp), ("warp_mlp", warp_mlp)):
                 tot[key] += v
             tot["err"] = max(tot["err"], err)
-        if prev is None:
-            tot["prev_ms"] = None
-        prev_note = ("" if prev is None else
-                     f" (--prev {tot['prev_ms']:.4f}, outputs "
-                     f"{tot['prev_equal']} values apart)")
         log(f"[3e] {label}, the frame's {len(calls)} calls: kernel "
-            f"{tot['ms']:.4f} ms{prev_note}, bound {tot['bound_ms']:.4f} ms "
+            f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
             f"({100 * tot['bound_ms'] / tot['ms']:.2f}%); lane-trips needed "
             f"{tot['needed']}, executed {tot['slots']}; MLP needed "
             f"{tot['support']}, run {tot['mlp']}, by warps of 32 lanes "
@@ -986,8 +873,8 @@ def phase_golden_demo(dev):
     return launches["k1b"]
 
 
-def report(label, u, prev=""):
-    log(f"[5] {label}: {u['march_ms']:.4f} ms{prev}; lane-trips needed "
+def report(label, u):
+    log(f"[5] {label}: {u['march_ms']:.4f} ms; lane-trips needed "
         f"{u['lane_iters_needed']}, executed {u['lane_iters_executed']}"
         f" (divergence tax {u['divergence_tax_pct']:.1f}%); MLP needed "
         f"(inside the bunny's sphere) {u['support_lane_iters']}, run "
@@ -1001,10 +888,9 @@ def report(label, u, prev=""):
         f"{u['bound_share_pct']:.2f}% of the time")
 
 
-def phase_utilization(dev, states, prev):
-    """bench.py's utilization extra, then each kernel's budget-32 state
-    (with ``--prev``, its K1c and K1d timed in turns with this tree's on
-    the bunny states). The one K2 sweep here is the one
+def phase_utilization(dev, states):
+    """bench.py's utilization extra, then each kernel's budget-32 state.
+    The one K2 sweep here is the one
     ``march_utilization`` reads its roof from (``speedlight.fma_sweep``
     measures once a process)."""
     march_kernel.reset_launches()
@@ -1031,16 +917,7 @@ def phase_utilization(dev, states, prev):
                         ("k1d metal", "metal state 3840x2160, 16 steps")):
         scene, so, sd, sinit, scfg = states[name]
         u = speedlight.march_utilization(scene, so, sd, scfg, init=sinit)
-        note = ""
-        if prev is not None and name[:3] in ("k1c", "k1d"):
-            new_ms, u["prev_ms"], ms = in_turns(
-                lambda: march_kernel.march_resumable_cuda(
-                    scene, so, sd, scfg, init=sinit),
-                lambda: prev.march(scene, so, sd, scfg, init=sinit), 5, 5)
-            note = (f" (in turns with --prev: {new_ms:.4f} vs "
-                    f"{u['prev_ms']:.4f} ms, n p p n: "
-                    f"{', '.join(f'{v:.4f}' for v in ms)})")
-        report(f"{name.split()[0].upper()} budget-32, {label}", u, note)
+        report(f"{name.split()[0].upper()} budget-32, {label}", u)
         bounds[name] = u
     launches = {**march_kernel.LAUNCHES, **fma_kernel.LAUNCHES}
     if not all(launches.values()):
@@ -1051,14 +928,8 @@ def phase_utilization(dev, states, prev):
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--prev", metavar="DIR",
-                    help="a checkout of the commit before the lane pool, "
-                         "whose K1c and K1d are timed beside this tree's")
-    args = ap.parse_args()
     dev = phase_device()
-    prev = None if args.prev is None else PrevKernels(args.prev)
-    build_s = phase_build(prev)
+    build_s = phase_build()
     err_2, k2_ms, k2_plain, k2_bound = phase_k2(dev)
     err_a, ka_ms, pa_ms, cornell_state = phase_kernel_vs_plain(dev)
     err_c, kc_ms, pc_ms, glass_state = phase_k1c_vs_plain(dev)
@@ -1068,7 +939,7 @@ def main():
     launch_c, ms_frame_c, msps_c, glass_calls = phase_bunny_path(dev)
     launch_d, metal, metal_path, metal_calls = phase_metal_path(dev)
     mstate, e_c, e_d = phase_metal_state_vs_plain(*metal_path)
-    in_frame = phase_in_frame(glass_calls, metal_calls, prev)
+    in_frame = phase_in_frame(glass_calls, metal_calls)
     del glass_calls, metal_calls
     err_c = max(err_c, e_c, in_frame["glass 1920x1080, K1c"]["err"],
                 in_frame["metal 3840x2160, K1c"]["err"])
@@ -1085,7 +956,7 @@ def main():
               "k1d": (glass, go, gd, ginit, gcfg.replace(bunny_mxu=True)),
               "k1c metal": mstate,
               "k1d metal": mstate[:4] + (mstate[4].replace(bunny_mxu=True),)}
-    launch_2, roof, bounds = phase_utilization(dev, states, prev)
+    launch_2, roof, bounds = phase_utilization(dev, states)
 
     frame = lambda k: in_frame[k]["ms"] / 4
     log(f"[6] summary: build {build_s:.2f} s; K2 roof {roof / 1e9:.1f} "
@@ -1107,13 +978,11 @@ def main():
     bound = lambda k: (bounds[k]["bound_ms"], bounds[k]["bound_by"])
 
     def pooled(e, key, frames):
-        """K1c's or K1d's entry with its MLP work on phase 5's glass state,
-        the previous kernel's time beside it (``--prev``; else null), and
-        the mean call inside the frames."""
+        """K1c's or K1d's entry with its MLP work on phase 5's glass state
+        and the mean call inside the frames."""
         u = bounds[key]
         e.update(support_lane_iters=u["support_lane_iters"],
                  mlp_lane_iters_executed=u["mlp_lane_iters_executed"],
-                 prev_ms=u.get("prev_ms"),
                  in_frame_ms={f: frame(f) for f in frames})
         return e
     log(json.dumps({"kernels": [

@@ -60,6 +60,10 @@
 
 #include <limits.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "march_common.cuh"
 
 namespace rt {
@@ -326,22 +330,42 @@ inline size_t pool_smem_bytes(int n_obj, int weights) {
                           4 * kPoolBlock + 2 + Slots::kFields * kPoolBlock);
 }
 
-inline int pool_blocks_per_sm(const void* kernel, size_t smem, int& per_sm,
-                              int& sms) {
+// The persistent grid of pool_kernel<P, C, B, Engine> on a scene of n_obj
+// objects on the current device: blocks of kPoolBlock that fit on an SM,
+// and SMs. The shared-memory attribute and the occupancy query are host
+// calls and a frame launches four times, so they run once per (device,
+// n_obj) and the answer is kept. The attribute only ever rises, so a grid
+// kept for a larger scene stays launchable after a smaller one's query.
+template <int P, int C, bool B, class Engine>
+int pool_grid(int n_obj, int& per_sm, int& sms) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, std::pair<int, int>> known;
+  static std::map<int, size_t> limit;  // the attribute set, by device
+  const void* kernel = (const void*)pool_kernel<P, C, B, Engine>;
+  const size_t smem = pool_smem_bytes(n_obj, Engine::kWeights);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const std::lock_guard<std::mutex> hold(mu);
+  const auto key = std::make_pair(dev, n_obj);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    per_sm = it->second.first;
+    sms = it->second.second;
+    return 0;
   }
-  if (e == cudaSuccess) {
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > limit[dev]) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
+    if (e == cudaSuccess) limit[dev] = smem;
   }
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kPoolBlock, smem);
   }
+  if (e == cudaSuccess) known[key] = std::make_pair(per_sm, sms);
   return (int)e;
 }
 
@@ -355,10 +379,8 @@ struct PoolLaunch {
     if (!a.bunny || !a.next_lane || block != kPoolBlock) {
       return (int)cudaErrorInvalidValue;
     }
-    const void* kernel = (const void*)pool_kernel<P, C, B, Engine>;
-    const size_t smem = pool_smem_bytes(a.n_obj, Engine::kWeights);
     int per_sm = 0, sms = 0;
-    const int e = pool_blocks_per_sm(kernel, smem, per_sm, sms);
+    const int e = pool_grid<P, C, B, Engine>(a.n_obj, per_sm, sms);
     if (e != 0) return e;
     const long long need = (a.n + kPoolBlock - 1) / kPoolBlock;
     const long long fit = (long long)per_sm * sms;
@@ -367,7 +389,9 @@ struct PoolLaunch {
     if ((long long)a.n + (long long)grid * kPoolBlock > INT_MAX) {
       return (int)cudaErrorInvalidValue;
     }
-    pool_kernel<P, C, B, Engine><<<grid, kPoolBlock, smem, s>>>(a);
+    pool_kernel<P, C, B, Engine>
+        <<<grid, kPoolBlock, pool_smem_bytes(a.n_obj, Engine::kWeights), s>>>(
+            a);
     return (int)cudaGetLastError();
   }
 };
@@ -377,9 +401,7 @@ struct PoolLaunch {
 // the persistent grid is their product.
 template <class Engine>
 int pool_occupancy(int* per_sm, int* sms) {
-  return pool_blocks_per_sm(
-      (const void*)pool_kernel<kConstant, kRelative, false, Engine>,
-      pool_smem_bytes(1, Engine::kWeights), *per_sm, *sms);
+  return pool_grid<kConstant, kRelative, false, Engine>(1, *per_sm, *sms);
 }
 
 }  // namespace rt

@@ -209,19 +209,23 @@ def scene_packs(scene, kind: str, cfg: RenderConfig):
     Computed once per scene object and kept on it, so the calls of a frame
     share them and the packs die with the scene. ``make_scene``, ``bake``
     and ``animate`` return new scenes; a buffer the scene replaces
-    (``scene.to``) is seen by identity and packs anew."""
+    (``scene.to``) is seen by identity, and one changed in place (``add_``,
+    ``copy_``, an optimizer step) by its version counter: either packs
+    anew."""
     key = (kind if kind in _POOLED else None,
            scenelib.has_escape_bound(scene, cfg))
     sources = _pack_sources(scene)
+    versions = tuple(getattr(v, "_version", None) for v in sources)
     cache = scene.__dict__.setdefault("_march_packs", {})
     hit = cache.get(key)
-    if hit is not None and all(a is b for a, b in zip(hit[0], sources)):
-        return hit[1]
+    if (hit is not None and hit[1] == versions
+            and all(a is b for a, b in zip(hit[0], sources))):
+        return hit[2]
     bound2 = scenelib.escape_bound2(scene, cfg)
     params = pack_scene(scene, bound2).contiguous()
     pack = {"k1c": pack_bunny, "k1d": pack_bunny_mxu}.get(key[0])
     bunny = None if pack is None else pack(scene).contiguous()
-    cache[key] = (sources, (bound2, params, bunny))
+    cache[key] = (sources, versions, (bound2, params, bunny))
     return bound2, params, bunny
 
 

@@ -249,8 +249,8 @@ def _count_packs(monkeypatch):
 @pytest.mark.parametrize("kind", ["k1c", "k1d"])
 def test_scene_packs_once_per_scene(monkeypatch, kind):
     """A frame's four calls on one scene share one set of packs; the
-    boundless config packs apart, and a buffer the scene replaces packs
-    anew."""
+    boundless config packs apart, and a buffer the scene replaces or one
+    changed in place packs anew."""
     calls = _count_packs(monkeypatch)
     scene = tbunny.glass_scene(CPU)
     cfg = tbunny.glass_config().replace(escape_bound=True,
@@ -265,9 +265,9 @@ def test_scene_packs_once_per_scene(monkeypatch, kind):
                      "escape_bound2": 1}
     bound2, params, bunny = first
     assert params.is_contiguous() and bunny.is_contiguous()
-    direct = (march_kernel.pack_bunny if kind == "k1c"
-              else march_kernel.pack_bunny_mxu)(scene)
-    assert torch.equal(bunny, direct)
+    direct_pack = (march_kernel.pack_bunny if kind == "k1c"
+                   else march_kernel.pack_bunny_mxu)
+    assert torch.equal(bunny, direct_pack(scene))
     assert torch.equal(params, march_kernel.pack_scene(scene, bound2))
     assert float(params[0, 18]) == float(bound2) > 0.0
     calls["pack_scene"] = 0
@@ -281,6 +281,15 @@ def test_scene_packs_once_per_scene(monkeypatch, kind):
     assert moved[1] is not params
     assert torch.equal(moved[1][:, 0:3], scene.position)
     assert calls["pack_scene"] == 2
+    scene.position.add_(0.5)  # in place: the same tensor, a new version
+    shifted = march_kernel.scene_packs(scene, kind, cfg)
+    assert torch.equal(shifted[1][:, 0:3], scene.position)
+    assert calls["pack_scene"] == 3
+    scene.bunny.w_in.mul_(2.0)
+    doubled = march_kernel.scene_packs(scene, kind, cfg)[2]
+    assert torch.equal(doubled, direct_pack(scene))
+    assert not torch.equal(doubled, bunny)
+    assert calls["pack_scene"] == 4
 
 
 def test_animated_scene_gets_fresh_packs():
