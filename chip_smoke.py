@@ -44,7 +44,15 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 3.  the Cornell main path: progressive wavefront frames of the full-PBR
     Cornell box (480x480, 4 steps per frame, 512-trip march in budgets of
     32, black sky, ACES then gamma) as ``bench.py`` times them: 1 + 3
-    warm-up frames, 10 timed. K1a must launch 4 times a frame.
+    warm-up frames, 10 timed. K1a must launch 4 times a frame. Then one
+    more frame whose four march calls' inputs are recorded (3e).
+3f. K1b's paths at full width, as ``tools/bench_workloads.py`` runs them
+    with 4 steps of one sample a frame: tokyo IBL (``scene_demo_scene``,
+    the tokyo HDR sky, ``engine_camera``, ``tokyo_config``: 2880x1620,
+    ROLLBACK_HALF_UP + RELATIVE) and engine (768x432, ROLLBACK_TO_ONE +
+    CONE); each 1 + 3 warm-up frames and 10 timed with ms/frame,
+    Msamples/s and peak memory, 4 K1b launches a frame and no other march
+    kernel; then one more frame each whose four march calls are recorded.
 3b. the bunny glass path at full width: 1920x1080, 4 steps per frame, the
     2048-trip march in budgets of 32, omega 0.5, the RELATIVE hit test, the
     synthetic HDR sky, the scene animated to frame 12 on the card; 1 + 3
@@ -61,12 +69,17 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 3d. the metal path's budget-32 call at 3840x2160 on its state after 16
     steps (where its timed frames start): K1c bit-equal to the plain
     march, K1d within the march bar of 2c.
-3e. the frames' own calls: the four budget-32 march calls recorded in 3b
-    (glass, K1c; K1d on the same inputs) and 3c (metal, K1c and K1d, each
-    from its own frame). On each: K1c bit-equal to the plain march, K1d
-    within the march bar; the kernel's time; lane-trips needed and
-    executed, MLP evaluations needed (the support) and run (the kernel's
-    counts), and the bound; then the frame's sums.
+3e. the frames' own calls. First the four budget-32 march calls recorded
+    in 3 (Cornell, K1a) and 3f (tokyo and engine, K1b): on each, bit-equal
+    to the plain march on all eight outputs; the kernel's time a call and
+    back to back (calls queued behind a sleep, so the host's share is
+    hidden); lane-trips needed and executed by warps of 32 fixed lanes
+    (the divergence tax); the bound and its share. Then the four calls
+    recorded in 3b (glass, K1c; K1d on the same inputs) and 3c (metal,
+    K1c and K1d, each from its own frame). On each: K1c bit-equal to the
+    plain march, K1d within the march bar; the kernel's time; lane-trips
+    needed and executed, MLP evaluations needed (the support) and run (the
+    kernel's counts), and the bound; then the frame's sums.
 4.  the ``wavefront_cornell_full`` golden rendered on the card: >= 35 dB.
 4b. the ``wavefront_scene_demo`` golden on the card (K1b's path): >= 35 dB.
 5.  utilization (``bench.py``'s speed-of-light extra): K2's roof (one
@@ -80,8 +93,10 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     the share of K2's roof and of 67 TFLOP/s, and the bound.
 
 Each path's launch counts are set to 0 just before it and read just after.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Imports no jax.
+The last lines are the kernels' JSON record (K1a and K1b with their mean
+call inside their frames, a call alone and back to back; K1c and K1d with
+theirs), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``. Imports no jax.
 """
 import json
 import os
@@ -119,6 +134,9 @@ K1B_RES = (768, 432)          # K1b primaries
 RANDOM_RAYS = 1 << 18         # K1b random rays
 MLP_POINTS = 1 << 20          # K1d's MLP alone
 TIMED_FRAMES = 10
+# a sleep on the stream long enough (~10 ms) for the host to queue the
+# back-to-back calls of device_ms behind it
+SLEEP_CYCLES = 20_000_000
 # K2's comparison with its plain version: (threads, iters, chains, unroll)
 K2_CHECK = (132 * 256 + 3, 64)
 
@@ -154,6 +172,23 @@ def metal_config():
     4 steps a frame of one sample each."""
     return bunny.metal_config().replace(samples_per_frame=4,
                                         samples_per_pixel=1)
+
+
+def k1b_paths(dev):
+    """K1b's two paths as the reference's workload table runs them
+    (``tools/bench_workloads.py``), 4 steps a frame of one sample each:
+    {label: (scene, environment, camera, config)}."""
+    one = dict(samples_per_frame=4, samples_per_pixel=1)
+    return {
+        "tokyo 2880x1620": (demo.scene_demo_scene(dev),
+                            demo.tokyo_environment(device=dev),
+                            demo.engine_camera(dev),
+                            demo.tokyo_config().replace(**one)),
+        "engine 768x432": (demo.engine_scene(dev),
+                           demo.engine_environment(device=dev),
+                           demo.engine_camera(dev),
+                           demo.engine_config().replace(**one)),
+    }
 
 
 def phase_device():
@@ -212,6 +247,24 @@ def phase_build():
             f"{march_kernel.POOL_SLOTS} slots per SM x {sms} SMs = "
             f"{per_sm * sms * march_kernel.POOL_SLOTS} slots")
     return secs
+
+
+def device_ms(fn, reps=20):
+    """The card's time per call of fn() when calls run back to back: CUDA
+    events around ``reps`` calls queued behind a sleep on the stream, so
+    the host's work per call (the wrapper, the launch) is hidden. For a
+    call that launches one kernel, that kernel's time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def median_ms(fn, reps=15):
@@ -285,6 +338,16 @@ def compare(scene, o, d, cfg, active=None, init=None):
                                     init=init)
     bad = {name: int((a != b).sum()) for name, a, b in zip(FIELDS, k, p)}
     if any(bad.values()):
+        lanes = torch.zeros_like(k.t, dtype=torch.bool)
+        for a, b in zip(k, p):
+            lanes |= a != b
+        for j in lanes.nonzero()[:4, 0].tolist():
+            log(f"lane {j}: origin {o[j].tolist()}, direction "
+                f"{d[j].tolist()}, active "
+                f"{None if active is None else bool(active[j])}, init "
+                f"{None if init is None else [float(v[j]) for v in init]}; "
+                f"kernel {[v[j].item() for v in k]}, plain "
+                f"{[v[j].item() for v in p]}")
         raise AssertionError(f"lanes differ between kernel and plain march: "
                              f"{bad}")
     err = max((float((a - b).abs().max()) for a, b in zip(k, p)
@@ -615,11 +678,34 @@ def run_frames(scene, env, cam, cfg, kind, label):
 
 
 def phase_main_path(dev):
+    """The Cornell frames, then one more whose four march calls are
+    recorded (3e)."""
     cfg = main_config()
-    ms, msps, n, _ = run_frames(cornell.full_scene(dev), cornell.sky(dev),
-                                cornell.full_camera(dev), cfg, "k1a",
-                                "[3] main path 480x480")
-    return n, ms, msps
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    ms, msps, n, state = run_frames(scene, env, cam, cfg, "k1a",
+                                    "[3] main path 480x480")
+    calls, _ = capture_frame(scene, env, cam, cfg, state)
+    return n, ms, msps, (scene, calls)
+
+
+def phase_k1b_paths(dev):
+    """K1b's paths at full width (3f): tokyo 2880x1620 and engine 768x432,
+    each 1 + 3 warm-up frames and 10 timed with 4 K1b launches a frame and
+    no other march kernel, then one more frame whose four march calls are
+    recorded (3e). Returns {label: (ms/frame, Msamples/s, launches, peak
+    GiB, (scene, calls))}."""
+    out = {}
+    for label, (scene, env, cam, cfg) in k1b_paths(dev).items():
+        assert march_kernel.variant(scene, cfg) == "k1b"
+        torch.cuda.reset_peak_memory_stats()
+        ms, msps, n, state = run_frames(scene, env, cam, cfg, "k1b",
+                                        f"[3f] {label}")
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[3f] {label}: peak device memory {mem:.2f} GiB")
+        calls, _ = capture_frame(scene, env, cam, cfg, state)
+        out[label] = (ms, msps, n, mem, (scene, calls))
+    return out
 
 
 def phase_bunny_path(dev):
@@ -832,6 +918,50 @@ def phase_in_frame(glass_calls, metal_calls):
     return out
 
 
+def phase_in_frame_analytic(frames):
+    """The Cornell, tokyo and engine frames' own budget-32 march calls
+    (K1a, K1b; recorded in 3 and 3f), each bit-equal to the plain march,
+    timed (a call, and back to back: ``device_ms``), with its lane-trips
+    needed and executed by warps of 32 fixed lanes and its bound. Returns
+    {label: the frame's sums}."""
+    out = {}
+    for label, (scene, calls) in frames.items():
+        tot = dict(ms=0.0, device_ms=0.0, bound_ms=0.0, needed=0,
+                   executed=0, err=0.0)
+        for j, (o, d, act, init, c) in enumerate(calls):
+            kind = march_kernel.variant(scene, c)
+            k, err = compare(scene, o, d, c, act, init)
+            run = lambda: march_kernel.march_resumable_cuda(
+                scene, o, d, c, active=act, init=init)
+            run()
+            ms = median_ms(run, 5)
+            dev_ms = device_ms(run)
+            b = speedlight.march_bound(scene, c, k.fin, 0, act, init)
+            needed = b["lane_iters_needed"]
+            executed = speedlight.warp_executed(k.fin)
+            log(f"[3e] {label} call {j}: {kind.upper()} bit-equal; {ms:.4f} "
+                f"ms a call, {dev_ms:.4f} ms back to back; {o.shape[0]} "
+                f"lanes, {int(act.sum()) if act is not None else o.shape[0]}"
+                f" active; lane-trips needed {needed}, executed by warps of "
+                f"32 fixed lanes {executed} (tax "
+                f"{100 * (1 - needed / max(executed, 1)):.1f}%); bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                f"{100 * b['bound_ms'] / dev_ms:.2f}% back to back")
+            for key, v in (("ms", ms), ("device_ms", dev_ms),
+                           ("bound_ms", b["bound_ms"]), ("needed", needed),
+                           ("executed", executed)):
+                tot[key] += v
+            tot["err"] = max(tot["err"], err)
+        log(f"[3e] {label}, the frame's {len(calls)} calls: kernel "
+            f"{tot['ms']:.4f} ms a call each, {tot['device_ms']:.4f} ms back "
+            f"to back; bound {tot['bound_ms']:.4f} ms "
+            f"({100 * tot['bound_ms'] / tot['device_ms']:.2f}%); lane-trips "
+            f"needed {tot['needed']}, executed {tot['executed']} (tax "
+            f"{100 * (1 - tot['needed'] / max(tot['executed'], 1)):.1f}%)")
+        out[label] = tot
+    return out
+
+
 def score_golden(img, path, label):
     got = (np.clip(img.cpu().numpy(), 0, 1) * 255 + 0.5).astype(np.uint8)
     db = psnr(got, read_png(path)[..., :3])
@@ -870,7 +1000,6 @@ def phase_golden_demo(dev):
     db = score_golden(img, GOLDEN_DEMO, "wavefront_scene_demo")
     log(f"[4b] wavefront_scene_demo golden on the card: {db:.2f} dB "
         f"({int(state.frame)} frames, {launches['k1b']} K1b launches)")
-    return launches["k1b"]
 
 
 def report(label, u):
@@ -935,7 +1064,18 @@ def main():
     err_c, kc_ms, pc_ms, glass_state = phase_k1c_vs_plain(dev)
     err_b, times_b, states_b = phase_k1b_vs_plain(dev)
     err_d, kd_ms, pd_ms = phase_k1d_vs_plain(dev, glass_state)
-    launch_a, ms_frame, msps = phase_main_path(dev)
+    launch_a, ms_frame, msps, cornell_calls = phase_main_path(dev)
+    k1b_paths_out = phase_k1b_paths(dev)
+    analytic_calls = {"cornell 480x480": cornell_calls,
+                      **{k: v[4] for k, v in k1b_paths_out.items()}}
+    in_frame_ab = phase_in_frame_analytic(analytic_calls)
+    del analytic_calls, cornell_calls
+    k1b_frames = {k: v[:4] for k, v in k1b_paths_out.items()}
+    del k1b_paths_out
+    err_a = max(err_a, in_frame_ab["cornell 480x480"]["err"])
+    err_b = max(err_b, in_frame_ab["tokyo 2880x1620"]["err"],
+                in_frame_ab["engine 768x432"]["err"])
+    launch_b = k1b_frames["tokyo 2880x1620"][2]
     launch_c, ms_frame_c, msps_c, glass_calls = phase_bunny_path(dev)
     launch_d, metal, metal_path, metal_calls = phase_metal_path(dev)
     mstate, e_c, e_d = phase_metal_state_vs_plain(*metal_path)
@@ -946,7 +1086,7 @@ def main():
     err_d = max(err_d, e_d, in_frame["glass 1920x1080, K1d"]["err"],
                 in_frame["metal 3840x2160, K1d"]["err"])
     phase_golden(dev)
-    launch_b = phase_golden_demo(dev)
+    phase_golden_demo(dev)
     demo_label = "scene_demo (ROLLBACK_TO_ONE + RELATIVE)"
     kb_ms, pb_ms = times_b[demo_label]
 
@@ -968,7 +1108,13 @@ def main():
         f"K1c glass {frame('glass 1920x1080, K1c'):.4f}, metal "
         f"{frame('metal 3840x2160, K1c'):.4f}; K1d glass "
         f"{frame('glass 1920x1080, K1d'):.4f}, metal "
-        f"{frame('metal 3840x2160, K1d'):.4f} ms")
+        f"{frame('metal 3840x2160, K1d'):.4f} ms; " + "; ".join(
+            f"{k} {v[0]:.3f} ms/frame, {v[1]:.4f} Msamples/s, K1b "
+            f"{in_frame_ab[k]['device_ms'] / 4:.4f} ms a call back to back"
+            for k, v in k1b_frames.items())
+        + f"; K1a in the Cornell frame "
+        f"{in_frame_ab['cornell 480x480']['device_ms'] / 4:.4f} ms a call "
+        f"back to back")
     entry = lambda name, source, line, n, err, k, p, b: {
         "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
         "replaces": line, "launches": n, "max_abs_err": err, "ms": k,
@@ -985,11 +1131,21 @@ def main():
                  mlp_lane_iters_executed=u["mlp_lane_iters_executed"],
                  in_frame_ms={f: frame(f) for f in frames})
         return e
+
+    def analytic(e, frames):
+        """K1a's or K1b's entry with the mean call inside its frames: a
+        call alone, and back to back (the kernel's own time)."""
+        e.update(in_frame_ms={f: in_frame_ab[f]["ms"] / 4 for f in frames},
+                 in_frame_device_ms={f: in_frame_ab[f]["device_ms"] / 4
+                                     for f in frames})
+        return e
     log(json.dumps({"kernels": [
-        entry("march_k1a", "march.cu", f"{TPU_KERNEL}:297", launch_a, err_a,
-              ka_ms, pa_ms, bound("k1a")),
-        entry("march_k1b", "march.cu", f"{TPU_KERNEL}:338", launch_b, err_b,
-              kb_ms, pb_ms, bound("k1b")),
+        analytic(entry("march_k1a", "march.cu", f"{TPU_KERNEL}:297",
+                       launch_a, err_a, ka_ms, pa_ms, bound("k1a")),
+                 ("cornell 480x480",)),
+        analytic(entry("march_k1b", "march.cu", f"{TPU_KERNEL}:338",
+                       launch_b, err_b, kb_ms, pb_ms, bound("k1b")),
+                 ("tokyo 2880x1620", "engine 768x432")),
         pooled(entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156", launch_c,
                      err_c, kc_ms, pc_ms, bound("k1c")), "k1c",
                ("glass 1920x1080, K1c", "metal 3840x2160, K1c")),

@@ -20,9 +20,20 @@ All have the active gate and the resume from ``(t, w, s, d)``.
 What bounds them on an H100: FP32 issue (about 25 flops per analytic
 object per lane-trip; about 1,250 flops and 48 sinf for a bunny lane inside
 the unit sphere), while a lane reads about 41 bytes and writes 29 once
-(``utils/speedlight.march_bound``). K1a and K1b answer with one thread per
-lane and a per-lane loop exit, the scene staged once per block in shared
-memory. K1c and K1d share a persistent lane pool (``csrc/march_pool.cuh``):
+(``utils/speedlight.march_bound``). K1a and K1b run one thread per lane
+with a per-lane loop exit and spend their issue slots on the object loop
+(``csrc/march.cu`` gives the measured counts). The TPU kernel unrolls that
+loop over static shape types and skips the matrix of a signed permutation
+(``_nearest_tile``, ``march_kernel.py:229-271``). Here :func:`pack_groups`
+orders the objects into groups of one (shape, permutation or matrix)
+kind, a permutation group in runs by the world axis its SDF reads last or
+alone; each run is a loop with its SDF and transform compiled in (no type
+switch on an object), a permutation folded per world axis so that it
+takes no matrix products, its record read as 16-byte vectors at addresses
+uniform over the warp from shared memory. The running min is
+lexicographic over (distance, index), so the result is the plain
+version's, bit for bit, whatever order the groups come in. K1c and K1d
+share a persistent lane pool (``csrc/march_pool.cuh``):
 as many blocks as fit on the card, each of :data:`POOL_SLOTS` slots that
 take the next lane from a counter when their lane is done and march on
 their own until their point lies inside a bunny's unit sphere; then a
@@ -31,7 +42,8 @@ the block (K1c: FP32 chains, an entry a thread; K1d: ``mma.sync``, 32
 entries a warp).
 
 The wrapper packs a scene for the kernels (:func:`scene_packs`) once per
-``Scene`` object and keeps the packs on it: a frame's calls share them.
+``Scene`` object and keeps the packs on it: a frame's calls share them, and
+no call copies anything to the host.
 
 The plain PyTorch version is ``ops/march.march_resumable_plain``;
 ``ops/march.march_resumable`` sends CPU tensors there and CUDA tensors here.
@@ -41,6 +53,7 @@ call raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -54,6 +67,8 @@ from . import build
 BLOCK = 256
 # lanes a block of K1c or K1d holds at once (csrc/march_pool.cuh)
 POOL_SLOTS = 256
+# threads a block of K1a and K1b, a lane each
+ANALYTIC_BLOCK = 256
 
 # Kernel launches made by march_resumable_cuda, per variant: plain
 # counters that a run resets and reads to show which path it went through.
@@ -75,25 +90,30 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def declare(lib: ctypes.CDLL, source: str = "march") -> ctypes.CDLL:
+    """Declares the C ABI of a library built from ``csrc/<source>.cu``
+    (both march sources export ``rt_march``, ``rt_march_max_objects`` and
+    ``rt_pool_occupancy``; ``march_mxu`` also ``rt_bunny_mlp_mxu``)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rt_march.argtypes = ([p, p, p, i, f, p, p, p, p, p, p, p, f, f,
+                              f, f, f, f, i, i, i, i, i] + [p] * 10
+                             + [i, p])
+    lib.rt_march.restype = i
+    lib.rt_march_max_objects.argtypes = []
+    lib.rt_march_max_objects.restype = i
+    lib.rt_pool_occupancy.argtypes = [p, p]
+    lib.rt_pool_occupancy.restype = i
+    if source == "march_mxu":
+        lib.rt_bunny_mlp_mxu.argtypes = [p, p, p, i, i, p]
+        lib.rt_bunny_mlp_mxu.restype = i
+    return lib
+
+
 def load(source: str = "march"):
     """Build if needed, then load ``csrc/<source>.cu`` and declare its C
-    ABI (both march sources export ``rt_march``, ``rt_march_max_objects``
-    and ``rt_pool_occupancy``; ``march_mxu`` also ``rt_bunny_mlp_mxu``)."""
+    ABI (:func:`declare`)."""
     if source not in _libs:
-        lib = build.load(source)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rt_march.argtypes = ([p, p, p, i, f, p, p, p, p, p, p, p, f, f,
-                                  f, f, f, f, i, i, i, i, i] + [p] * 10
-                                 + [i, p])
-        lib.rt_march.restype = i
-        lib.rt_march_max_objects.argtypes = []
-        lib.rt_march_max_objects.restype = i
-        lib.rt_pool_occupancy.argtypes = [p, p]
-        lib.rt_pool_occupancy.restype = i
-        if source == "march_mxu":
-            lib.rt_bunny_mlp_mxu.argtypes = [p, p, p, i, i, p]
-            lib.rt_bunny_mlp_mxu.restype = i
-        _libs[source] = lib
+        _libs[source] = declare(build.load(source), source)
     return _libs[source]
 
 
@@ -194,6 +214,140 @@ def pack_bunny_mxu(scene) -> torch.Tensor:
 # the variants whose kernel reads a pack of the bunny's weights: the pool
 _POOLED = ("k1c", "k1d")
 
+# K1a/K1b's object groups (csrc/march.cu): a kind is (shape, transform),
+# 2 * shape + (0 a signed permutation, 1 the matrix) over _GROUP_SHAPES. A
+# permutation is further keyed by a world axis (run 0, 1 or 2 of its
+# group); XF_MATRIX is the matrix's transform. NONE objects are in no
+# group: at MAX_DIS they never win the running min.
+_GROUP_SHAPES = (SHAPE.SPHERE, SHAPE.BOX, SHAPE.CYLINDER, SHAPE.CONE,
+                 SHAPE.PLANE)
+XF_MATRIX = 3
+MAX_GROUPS = len(_GROUP_SHAPES) * 2
+RECORD = 24  # floats a record of pack_groups
+
+
+def group_kind(shape: int, perm) -> Optional[int]:
+    """The group kind of an object of ``shape`` with ``rot_perm`` entry
+    ``perm``, or None for NONE."""
+    if shape == SHAPE.NONE:
+        return None
+    return 2 * _GROUP_SHAPES.index(shape) + int(perm is None)
+
+
+def transform(shape: int, perm) -> int:
+    """XF_MATRIX, or the world axis a permutation is keyed by: the axis the
+    SDF reads last or alone, row 2's for the sphere and the box (the last
+    term of their sums of squares), row 1's for the cylinder, the cone and
+    the plane."""
+    if perm is None:
+        return XF_MATRIX
+    return perm[0][2] if shape in (SHAPE.SPHERE, SHAPE.BOX) else perm[0][1]
+
+
+@functools.lru_cache(maxsize=256)
+def group_layout(shape_types: tuple, rot_perm: tuple):
+    """The static part of :func:`pack_groups`: ``(groups, order, src,
+    neg)``. ``groups``: (kind, e0, e1, e2) in kind order, a group's records
+    running from the previous e2 (0 first) to its e2, a permutation group's
+    keyed by axis 0 up to e0, 1 up to e1 and 2 up to e2 (a matrix group's
+    e0 = e1 = its first record); ``order``: the object of each record, by
+    kind, key axis and index; ``src`` (n, RECORD) int64: where each float
+    of a record comes from in :func:`_pack_values`; ``neg`` (n, RECORD)
+    bool: whether it is negated (a permutation's sign)."""
+    n = len(shape_types)
+    pos, scale, mat, off = 0, 3 * n, 6 * n, 15 * n
+    zero, one, index = 18 * n, 18 * n + 1, 18 * n + 2
+    keys = sorted((group_kind(t, p), transform(t, p) % XF_MATRIX, i)
+                  for i, (t, p) in enumerate(zip(shape_types, rot_perm))
+                  if t != SHAPE.NONE)
+    order = [i for _, _, i in keys]
+    groups = []
+    for kind in sorted({k for k, _, _ in keys}):
+        start = groups[-1][3] if groups else 0
+        ends = [start + sum(1 for k, a, _ in keys if k == kind and a <= axis)
+                for axis in range(3)]
+        if kind % 2:  # a matrix group: one run
+            ends[0] = ends[1] = start
+        groups.append((kind, *ends))
+    src = np.full((n, RECORD), zero, np.int64)
+    neg = np.zeros((n, RECORD), bool)
+    for j, i in enumerate(order):
+        r, g = src[j], neg[j]
+        r[0:3] = pos + 3 * i + np.arange(3)
+        r[3] = index + i
+        r[7:10] = scale + 3 * i + np.arange(3)  # a0, a1, a2
+        for row in range(3):  # permutations too: non-finite points read it
+            r[12 + 4 * row:15 + 4 * row] = mat + 9 * i + 3 * row + \
+                np.arange(3)
+        perm = rot_perm[i]
+        if perm is None:
+            r[4:7] = off + 3 * i + np.arange(3)
+            continue
+        cols, signs = perm
+        row_of = [cols.index(a) for a in range(3)]  # the row reading axis a
+        for a in range(3):
+            r[4 + a] = off + 3 * i + row_of[a]
+            g[4 + a] = signs[row_of[a]] < 0
+        if shape_types[i] == SHAPE.BOX:
+            r[7:10] = scale + 3 * i + np.array(row_of)
+        elif shape_types[i] == SHAPE.PLANE:
+            g[8] = signs[1] < 0
+        elif shape_types[i] == SHAPE.CONE:
+            r[10], g[10] = one, signs[1] < 0
+    return tuple(groups), tuple(order), src, neg
+
+
+def _pack_values(scene) -> torch.Tensor:
+    """What :func:`group_layout`'s ``src`` indexes: the scene's position,
+    scale, matrix and local offset flattened, then 0, 1 and the object
+    indices 0 .. n-1 as floats."""
+    n = scene.num_objects
+    dev, dt = scene.position.device, scene.position.dtype
+    return torch.cat([scene.position.reshape(-1), scene.scale.reshape(-1),
+                      scene.matrix.reshape(-1), scene.local_offset.reshape(-1),
+                      torch.zeros(1, dtype=dt, device=dev),
+                      torch.ones(1, dtype=dt, device=dev),
+                      torch.arange(n, dtype=dt, device=dev)])
+
+
+def _static(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device`` without waiting on the stream: through
+    pinned memory and an asynchronous copy for the card."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def pack_groups(scene, bound2: Optional[torch.Tensor] = None):
+    """K1a/K1b's packs of ``scene``: ``(params, table)``.
+
+    ``params`` (4 + n * RECORD,) f32: a header [bound2 or 0, 0, 0, 0], then
+    a record an object in group order (NONE objects none; unused records
+    zero): position, index, offset, a0, a1, a2, a3, 0, the matrix rows each
+    padded to 4 (a permutation's too: the kernels read it on points with a
+    NaN or an infinite coordinate). A matrix object keeps its offset and
+    scale (a0-a2). A
+    signed permutation in ``scene.rot_perm`` (row r reads world axis c_r
+    with sign s_r) gets, per world axis a, the offset of the row reading it
+    times that row's sign; the box its scales by axis; the cone a3 = s_1;
+    the plane a1 = s_1 * sy (``csrc/march.cu`` says why each is exact).
+    ``table`` (1 + MAX_GROUPS, 4) i32: [groups, 0, 0, 0], then a group's
+    (kind, e0, e1, e2) of :func:`group_layout`. ``rot_perm`` must describe
+    ``scene.matrix``, as ``make_scene`` sets it (``bake`` and ``animate``
+    clear it)."""
+    groups, _, src, neg = group_layout(scene.shape_types, scene.rot_perm)
+    dev, dt = scene.position.device, scene.position.dtype
+    v = _pack_values(scene)[_static(src, dev)]
+    rec = torch.where(_static(neg, dev), -v, v)
+    head = torch.zeros(4, dtype=dt, device=dev)
+    if bound2 is not None:
+        head = torch.cat([bound2.reshape(1).to(dt), head[1:]])
+    table = np.zeros((1 + MAX_GROUPS, 4), np.int32)
+    table[0, 0] = len(groups)
+    table[1:1 + len(groups)] = np.array(groups, np.int32).reshape(-1, 4)
+    return torch.cat([head, rec.reshape(-1)]), _static(table, dev)
+
 
 def _pack_sources(scene):
     return ((scene.position, scene.scale, scene.matrix, scene.local_offset)
@@ -201,10 +355,11 @@ def _pack_sources(scene):
 
 
 def scene_packs(scene, kind: str, cfg: RenderConfig):
-    """``(bound2, params, bunny)`` for variant ``kind``'s kernel:
-    ``scene.escape_bound2`` (None without the test), :func:`pack_scene`
-    with it, and the bunny's pack (:func:`pack_bunny` for K1c,
-    :func:`pack_bunny_mxu` for K1d, else None), each contiguous.
+    """``(bound2, params, extra)`` for variant ``kind``'s kernel:
+    ``scene.escape_bound2`` (None without the test); for K1c and K1d
+    :func:`pack_scene` with it and the bunny's pack (:func:`pack_bunny`,
+    :func:`pack_bunny_mxu`); for K1a and K1b the two packs of
+    :func:`pack_groups`. Each is contiguous.
 
     Computed once per scene object and kept on it, so the calls of a frame
     share them and the packs die with the scene. ``make_scene``, ``bake``
@@ -212,7 +367,8 @@ def scene_packs(scene, kind: str, cfg: RenderConfig):
     (``scene.to``) is seen by identity, and one changed in place (``add_``,
     ``copy_``, an optimizer step) by its version counter: either packs
     anew."""
-    key = (kind if kind in _POOLED else None,
+    pooled = kind in _POOLED
+    key = (kind if pooled else scene.rot_perm,
            scenelib.has_escape_bound(scene, cfg))
     sources = _pack_sources(scene)
     versions = tuple(getattr(v, "_version", None) for v in sources)
@@ -222,11 +378,14 @@ def scene_packs(scene, kind: str, cfg: RenderConfig):
             and all(a is b for a, b in zip(hit[0], sources))):
         return hit[2]
     bound2 = scenelib.escape_bound2(scene, cfg)
-    params = pack_scene(scene, bound2).contiguous()
-    pack = {"k1c": pack_bunny, "k1d": pack_bunny_mxu}.get(key[0])
-    bunny = None if pack is None else pack(scene).contiguous()
-    cache[key] = (sources, versions, (bound2, params, bunny))
-    return bound2, params, bunny
+    if pooled:
+        params = pack_scene(scene, bound2).contiguous()
+        pack = pack_bunny if kind == "k1c" else pack_bunny_mxu
+        extra = pack(scene).contiguous()
+    else:
+        params, extra = pack_groups(scene, bound2)
+    cache[key] = (sources, versions, (bound2, params, extra))
+    return bound2, params, extra
 
 
 def pool_occupancy(kind: str):
@@ -299,8 +458,11 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
             f"{lib.rt_march_max_objects()} in shared memory")
     origin = origin.contiguous()
     direction = direction.contiguous()
-    bound2, params, bunny = scene_packs(scene, kind, cfg)
+    bound2, params, extra = scene_packs(scene, kind, cfg)
     pooled = kind in _POOLED
+    # K1c/K1d: the shape types and the bunny's pack; K1a/K1b: the group
+    # table, no bunny
+    types, bunny = (scene.type_ids, extra) if pooled else (extra, None)
     if counts is not None and not (
             pooled and counts.shape == (2,) and counts.dtype == torch.int64
             and counts.device == origin.device):
@@ -328,7 +490,7 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
         # scalar operand of an f32 tensor op (the plain march's
         # ``s * (1.0 + 1e-6)`` included), so both compare the same values
         rc = lib.rt_march(
-            ptr(params), ptr(scene.type_ids), ptr(bunny), scene.num_objects,
+            ptr(params), ptr(types), ptr(bunny), scene.num_objects,
             scene.box_round, ptr(origin), ptr(direction), ptr(act),
             *(ptr(v) for v in inits), cfg.march_t0, cfg.omega,
             cfg.hit_precision, cfg.max_dis, cfg.pixel_radius, 1.0 + 1e-6,
@@ -336,7 +498,7 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
             int(bound2 is not None),
             cfg.max_raymarch, n, ptr(t), ptr(idx), ptr(hit), ptr(fin),
             ptr(w), ptr(s), ptr(d), ptr(done), ptr(next_lane), ptr(counts),
-            BLOCK, stream)
+            POOL_SLOTS if pooled else ANALYTIC_BLOCK, stream)
     if rc != 0:
         raise RuntimeError(f"march kernel {kind} launch failed: CUDA error "
                            f"{rc}")

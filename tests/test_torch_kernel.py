@@ -32,11 +32,13 @@ from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import camera as tcamera
 from raytracingpbr_tpu_torch.ops import march as tmarch
 from raytracingpbr_tpu_torch.ops.scene import (_BUFFERS, ObjectSpec, Scene,
-                                                bucket_layout, make_scene)
+                                                bake, bucket_layout,
+                                                make_scene)
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE, BunnyMLP, bunny_mlp_eval
 from raytracingpbr_tpu_torch.utils import speedlight
 
-from .torch_helpers import cuda_device, random_rays  # noqa: F401
+from .torch_helpers import (cuda_device, many_objects_scene,  # noqa: F401
+                            mixed_analytic_scene, random_rays)
 
 pytestmark = pytest.mark.cuda
 
@@ -166,6 +168,77 @@ def test_k1b_variants(cuda_device, case):
     assert march_kernel.variant(scene, cfg) == "k1b"
     o, d = _rays(8192, 4, (0.0, 0.0, 3.5), 0.3, cuda_device)
     _gated_resumed(scene, o, d, cfg, seed=4)
+
+
+def _offset(scene):
+    off = np.random.default_rng(5).normal(0, 0.05, (scene.num_objects, 3))
+    return scene.replace(local_offset=torch.as_tensor(
+        off.astype(np.float32), device=scene.device))
+
+
+# scenes that fill many of K1a/K1b's object groups
+GROUP_SCENES = {
+    "mixed": mixed_analytic_scene,
+    "mixed_offset": lambda dev: _offset(mixed_analytic_scene(dev)),
+    "mixed_baked": lambda dev: bake(mixed_analytic_scene(dev)),
+    "many_objects": many_objects_scene,
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_SCENES))
+def test_grouped_scenes(cuda_device, case):
+    """Every shape under permutations keyed by each axis and under
+    matrices, twin boxes that tie across groups, 128 objects, a baked
+    scene (every object on the matrix path), nonzero local offsets: fresh,
+    gated and resumed, all-inactive, at a ragged N."""
+    scene = GROUP_SCENES[case](cuda_device)
+    cfg = cornell.full_config().replace(max_raymarch=64)
+    assert march_kernel.variant(scene, cfg) == "k1a"
+    o, d = _rays(4097, 6, (0.0, 0.0, 2.5), 0.4, cuda_device)
+    _gated_resumed(scene, o, d, cfg, seed=6)
+    k, _ = both(scene, o, d, cfg)
+    assert bool(k.hit.any())
+
+
+@pytest.mark.parametrize("bound", [False, True])
+@pytest.mark.parametrize("crit", sorted(march_kernel._CRIT, key=str))
+@pytest.mark.parametrize("policy", sorted(march_kernel._POLICY, key=str))
+def test_every_analytic_instance(cuda_device, policy, crit, bound):
+    """Each (policy, criterion, bound) instance of K1a/K1b on the bounded
+    mixed scene: fresh, gated and resumed, all-inactive."""
+    scene = mixed_analytic_scene(cuda_device, plane=False)
+    cfg = cornell.full_config().replace(
+        omega_policy=policy, hit_criterion=crit, escape_bound=bound,
+        omega=1.0 if policy == OmegaPolicy.CONSTANT else 1.6,
+        max_raymarch=64)
+    o, d = _rays(2049, 7, (0.0, 0.0, 2.5), 0.4, cuda_device)
+    _gated_resumed(scene, o, d, cfg, seed=7)
+
+
+@pytest.mark.parametrize("case", ["cornell", "mixed", "many_objects"])
+def test_non_finite_rays(cuda_device, case):
+    """Rays whose origin or direction has a NaN or an infinite coordinate,
+    beside ordinary rays, for K1a and K1b: as in the plain march, only a
+    sphere can be nearest to such a point (``fold_non_finite``), where the
+    fast path's fmaxf would drop a NaN and a permutation read one axis."""
+    scene = {"cornell": cornell.full_scene, "mixed": mixed_analytic_scene,
+             "many_objects": many_objects_scene}[case](cuda_device)
+    o, d = _rays(1024, 8, (0.0, 0.0, 2.5), 0.4, cuda_device)
+    bad = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                       device=cuda_device)
+    k = torch.arange(0, 96, device=cuda_device)
+    d[k, k % 3] = bad[k % 3]
+    o[k + 96, k % 3] = bad[k % 3]
+    for cfg in (cornell.full_config(), demo.tokyo_config()):
+        res, ref = both(scene, o, d, cfg.replace(max_raymarch=32))
+        assert_bit_equal(res, ref)
+
+
+def test_more_objects_than_staged_raise(cuda_device):
+    scene = many_objects_scene(cuda_device, n=129)
+    o, d = _rays(64, 0, (0.0, 0.0, 2.5), 0.4, cuda_device)
+    with pytest.raises(NotImplementedError):
+        march_kernel.march_resumable_cuda(scene, o, d, cornell.full_config())
 
 
 BUNNY_CASES = {

@@ -45,3 +45,55 @@ def random_rays(n: int, seed: int = 0, center=(0.0, 0.0, 3.5),
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def mixed_analytic_scene(device, plane=True):
+    """Every analytic shape under the identity, signed permutations keyed
+    by each axis (90 and 180 degree turns) and arbitrary rotations; a NONE;
+    two copies of one box, the earlier one forced onto the matrix path
+    (``rot_perm`` None on an exact permutation matrix), so that the two tie
+    across K1a/K1b's object groups. ``plane=False`` leaves out the two
+    planes (the escape bound needs a bounded scene)."""
+    from raytracingpbr_tpu_torch.ops.scene import ObjectSpec, make_scene
+    from raytracingpbr_tpu_torch.ops.sdf import SHAPE as S
+    objs = [ObjectSpec(S.NONE)]
+    if plane:
+        objs += [ObjectSpec(S.PLANE, (0, -1.2, 0), (0, 0, 0), (1, 0.0, 1)),
+                 ObjectSpec(S.PLANE, (0, 0.3, 0), (90, 0, 0), (1, 0.4, 1))]
+    turns = [(0, 0, 0), (90, 0, 0), (0, 90, 0), (0, 0, 90), (180, 0, 0),
+             (90, 90, 0), (0, -90, 90), (17, 35, -20)]
+    for k, rot in enumerate(turns):
+        c = (0.4 * np.cos(k), 0.1 * k - 0.3, 0.4 * np.sin(k))
+        objs += [ObjectSpec(S.SPHERE, c, rot, (0.2 + 0.01 * k,) * 3),
+                 ObjectSpec(S.BOX, c, rot, (0.3, 0.2 - 0.01 * k, 0.25)),
+                 ObjectSpec(S.CYLINDER, c, rot, (0.2, 0.3 + 0.01 * k, 0.2)),
+                 ObjectSpec(S.CONE, c, rot, (0.8, 0.6, 0.6 - 0.01 * k))]
+    objs.append(ObjectSpec(S.BOX, (0.5, 0.5, 0.5), (0, 90, 0),
+                           (0.3, 0.2, 0.1)))
+    objs.append(objs[-1])
+    scene = make_scene(objs, box_round=0.03, device=device)
+    twin = [i for i, t in enumerate(scene.shape_types) if t == S.BOX][-2:]
+    perm = list(scene.rot_perm)
+    perm[twin[0]] = None
+    return scene.replace(rot_perm=tuple(perm))
+
+
+def many_objects_scene(device, n=128, seed=0):
+    """``n`` analytic objects (no plane) in a unit cube: spheres, boxes,
+    cylinders and cones, half turned by multiples of 90 degrees (signed
+    permutations), the rest by arbitrary angles, every fifth a copy of the
+    one before."""
+    from raytracingpbr_tpu_torch.ops.scene import ObjectSpec, make_scene
+    from raytracingpbr_tpu_torch.ops.sdf import SHAPE as S
+    rng = np.random.default_rng(seed)
+    shapes = (S.SPHERE, S.BOX, S.CYLINDER, S.CONE)
+    objs = []
+    for k in range(n):
+        if k % 5 == 4:
+            objs.append(objs[-1])
+            continue
+        rot = (tuple(90.0 * rng.integers(-2, 3, 3)) if k % 2 else
+               tuple(rng.uniform(-180, 180, 3)))
+        objs.append(ObjectSpec(shapes[k % 4], tuple(rng.uniform(-1, 1, 3)),
+                               rot, tuple(rng.uniform(0.05, 0.15, 3))))
+    return make_scene(objs, box_round=0.01, device=device)
