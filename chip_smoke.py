@@ -82,6 +82,34 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     kernel's counts), and the bound; then the frame's sums.
 4.  the ``wavefront_cornell_full`` golden rendered on the card: >= 35 dB.
 4b. the ``wavefront_scene_demo`` golden on the card (K1b's path): >= 35 dB.
+3g. the megakernel (``render_image``) on the Cornell full config at
+    480x480, on ``bench.py``'s megakernel protocol: spp 1, untonemapped,
+    sample_offset 0 as warm-up, then 1..6 timed ending in a sync;
+    Msamples/s, ms/pass, the bounces the loop ran (K1a's launches a pass,
+    one a bounce), host syncs a pass (``torch.cuda.set_sync_debug_mode``),
+    peak memory; the same at the loop's exit check every 8 and 32 bounces;
+    one ``torch.profiler`` pass (device busy, idle share, top kernels).
+3h. the minimal Cornell megakernel at 512x512, ``diffuse_only`` (the
+    offline app's ``cornell_minimal``): the same numbers.
+3i. the glass bunny megakernel at 1920x1080 (``glass_config``, the scene
+    animated to frame 12, the HDR sky), spp 1, ``bunny_mxu`` off (K1c) and
+    on (K1d) in turns off, on, on, off: the same numbers, the bounce by
+    which 99% of lanes had stopped, one profiled pass with K1c.
+3j. the megakernel's own march calls, recorded in one pass of 3g and of
+    3i: bounce 0, bounce 1 and the last bounce with a live lane, unsplit
+    (512 and 2048 trips). K1a bit-equal to the plain march on the whole
+    call, timed, with its bound, share and divergence tax; K1c bit-equal
+    and K1d within the march bar on every 8th lane of the glass calls (and
+    on the whole call where at most that many lanes are active), timed on
+    the whole call and on the subset, bound, share and tax on the subset.
+3k. all nine self-goldens (``models/goldens``, ``tests/golden_specs.py``'s
+    sizes) through ``render_image`` on the card, each >= 35 dB against
+    ``assets/goldens/<name>.png``, each through its march kernel alone
+    (K1b: cornell_v3, scene_demo, tokyo; K1c: the bunny three).
+3l. the offline renderer as a user runs it, in a subprocess: ``python3 -m
+    raytracingpbr_tpu_torch.apps.offline --scene cornell --frames 1 --spp 1
+    --scale 1 --out build/offline_smoke``; rc 0 and a 480x480 PNG of mean
+    above 0.
 5.  utilization (``bench.py``'s speed-of-light extra): K2's roof (one
     sweep, which ``march_utilization`` reads), then
     ``bench.py``'s Cornell march (480x480 primaries, one unsplit 512-trip
@@ -95,14 +123,19 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON record (K1a and K1b with their mean
 call inside their frames, a call alone and back to back; K1c and K1d with
-theirs), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``. Imports no jax.
+theirs; K1a, K1c and K1d with their launches a megakernel pass and their
+3j calls' time, bound and share, K1b with its launches in the goldens),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Imports no jax.
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
+import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -112,8 +145,11 @@ from raytracingpbr_tpu_torch.core.types import make_frame_state
 from raytracingpbr_tpu_torch.io.image import read_png
 from raytracingpbr_tpu_torch.kernels import build, fma_kernel, march_kernel
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
-from raytracingpbr_tpu_torch.ops import camera, march, scene as scenelib
+from raytracingpbr_tpu_torch.models.goldens import GOLDENS, render_golden
+from raytracingpbr_tpu_torch.ops import camera, integrator, march
+from raytracingpbr_tpu_torch.ops import scene as scenelib
 from raytracingpbr_tpu_torch.ops.integrator import (render_frame,
+                                                    render_image,
                                                     render_image_progressive)
 from raytracingpbr_tpu_torch.ops.sdf import BunnyMLP, bunny_mlp_eval
 from raytracingpbr_tpu_torch.utils import speedlight
@@ -139,6 +175,13 @@ TIMED_FRAMES = 10
 SLEEP_CYCLES = 20_000_000
 # K2's comparison with its plain version: (threads, iters, chains, unroll)
 K2_CHECK = (132 * 256 + 3, 64)
+# the megakernel: bench.py's timed passes (3g, 3h); glass passes a run (3i,
+# four runs); every GLASS_SUBSET-th lane of a glass call for the plain
+# march (3j: 2,073,600 / 8 = 259,200 lanes)
+MEGA_PASSES = 6
+GLASS_PASSES = 1
+GLASS_SUBSET = 8
+GLASS_CALLS = f"glass megakernel, every {GLASS_SUBSET}th lane"
 
 
 def log(*a):
@@ -864,10 +907,19 @@ def phase_in_frame(glass_calls, metal_calls):
     and counted. Returns {label: the frame's sums}."""
     glass, gcalls = glass_calls
     metal, mcalls = metal_calls
-    sets = (("glass 1920x1080, K1c", glass, gcalls, False),
-            ("glass 1920x1080, K1d", glass, gcalls, True),
-            ("metal 3840x2160, K1c", metal, mcalls[False], False),
-            ("metal 3840x2160, K1d", metal, mcalls[True], True))
+    return pooled_calls((("glass 1920x1080, K1c", glass, gcalls, False),
+                         ("glass 1920x1080, K1d", glass, gcalls, True),
+                         ("metal 3840x2160, K1c", metal, mcalls[False],
+                          False),
+                         ("metal 3840x2160, K1d", metal, mcalls[True],
+                          True)))
+
+
+def pooled_calls(sets, tag="[3e]", names=None):
+    """K1c's or K1d's march calls, each against the plain march (K1c
+    bit-equal, K1d the march bar), timed, counted, with its bound: for each
+    ``(label, scene, calls, bunny_mxu)`` of ``sets``. ``names`` labels the
+    calls (default their numbers). Returns {label: the sums}."""
     out = {}
     for label, scene, calls, mxu in sets:
         tot = dict(ms=0.0, bound_ms=0.0, needed=0, slots=0, support=0,
@@ -891,8 +943,8 @@ def phase_in_frame(glass_calls, metal_calls):
             work = speedlight.mlp_work(support, mlp)
             b = speedlight.march_bound(scene, cfg, k.fin, support, act, init)
             needed = b["lane_iters_needed"]
-            log(f"[3e] {label} call {j}: {kind.upper()} {note}; "
-                f"{ms:.4f} ms; {o.shape[0]} lanes, "
+            log(f"{tag} {label} call {j if names is None else names[j]}: "
+                f"{kind.upper()} {note}; {ms:.4f} ms; {o.shape[0]} lanes, "
                 f"{int(act.sum()) if act is not None else o.shape[0]} "
                 f"active; lane-trips needed {needed}, executed {slots}"
                 f" (tax {100 * (1 - needed / max(slots, 1)):.1f}%; warps of "
@@ -908,7 +960,7 @@ def phase_in_frame(glass_calls, metal_calls):
                            ("mlp", mlp), ("warp_mlp", warp_mlp)):
                 tot[key] += v
             tot["err"] = max(tot["err"], err)
-        log(f"[3e] {label}, the frame's {len(calls)} calls: kernel "
+        log(f"{tag} {label}, the {len(calls)} calls: kernel "
             f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
             f"({100 * tot['bound_ms'] / tot['ms']:.2f}%); lane-trips needed "
             f"{tot['needed']}, executed {tot['slots']}; MLP needed "
@@ -918,12 +970,12 @@ def phase_in_frame(glass_calls, metal_calls):
     return out
 
 
-def phase_in_frame_analytic(frames):
+def phase_in_frame_analytic(frames, tag="[3e]", names=None):
     """The Cornell, tokyo and engine frames' own budget-32 march calls
     (K1a, K1b; recorded in 3 and 3f), each bit-equal to the plain march,
     timed (a call, and back to back: ``device_ms``), with its lane-trips
-    needed and executed by warps of 32 fixed lanes and its bound. Returns
-    {label: the frame's sums}."""
+    needed and executed by warps of 32 fixed lanes and its bound. ``names``
+    labels the calls (default their numbers). Returns {label: the sums}."""
     out = {}
     for label, (scene, calls) in frames.items():
         tot = dict(ms=0.0, device_ms=0.0, bound_ms=0.0, needed=0,
@@ -939,7 +991,8 @@ def phase_in_frame_analytic(frames):
             b = speedlight.march_bound(scene, c, k.fin, 0, act, init)
             needed = b["lane_iters_needed"]
             executed = speedlight.warp_executed(k.fin)
-            log(f"[3e] {label} call {j}: {kind.upper()} bit-equal; {ms:.4f} "
+            log(f"{tag} {label} call {j if names is None else names[j]}: "
+                f"{kind.upper()} bit-equal; {ms:.4f} "
                 f"ms a call, {dev_ms:.4f} ms back to back; {o.shape[0]} "
                 f"lanes, {int(act.sum()) if act is not None else o.shape[0]}"
                 f" active; lane-trips needed {needed}, executed by warps of "
@@ -952,7 +1005,7 @@ def phase_in_frame_analytic(frames):
                            ("executed", executed)):
                 tot[key] += v
             tot["err"] = max(tot["err"], err)
-        log(f"[3e] {label}, the frame's {len(calls)} calls: kernel "
+        log(f"{tag} {label}, the {len(calls)} calls: kernel "
             f"{tot['ms']:.4f} ms a call each, {tot['device_ms']:.4f} ms back "
             f"to back; bound {tot['bound_ms']:.4f} ms "
             f"({100 * tot['bound_ms'] / tot['device_ms']:.2f}%); lane-trips "
@@ -1000,6 +1053,292 @@ def phase_golden_demo(dev):
     db = score_golden(img, GOLDEN_DEMO, "wavefront_scene_demo")
     log(f"[4b] wavefront_scene_demo golden on the card: {db:.2f} dB "
         f"({int(state.frame)} frames, {launches['k1b']} K1b launches)")
+
+
+# --- the megakernel (render_image) -------------------------------------------
+
+
+def host_syncs(fn):
+    """The host syncs fn() makes, as ``torch.cuda.set_sync_debug_mode``
+    reports them (one warning a sync), or None when it reported none."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n = sum(1 for w in seen if "synchroniz" in str(w.message).lower())
+    return n or None
+
+
+def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
+                      warm=True, **kw):
+    """``bench.py``'s megakernel protocol: ``render_image(spp=1,
+    tonemapped=False)`` at sample_offset ``first - 1`` as warm-up (unless
+    ``warm`` is False), then ``passes`` timed passes at sample offsets
+    ``first``, ``first + 1``, ... ending in a sync. Only ``kind``'s march
+    kernel may launch, one launch a bounce. Returns ms/pass, Msamples/s,
+    bounces the loop ran a pass, peak GiB and the last image."""
+    run = lambda s: render_image(scene, env, cam, cfg, spp=1,
+                                 sample_offset=s, tonemapped=False, **kw)
+    t0 = time.perf_counter()
+    if warm:
+        run(first - 1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    march_kernel.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(first, first + passes):
+        img = run(s)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / passes
+    launches = dict(march_kernel.LAUNCHES)
+    if not launches[kind] or any(v for k, v in launches.items() if k != kind):
+        raise AssertionError(f"{label}: expected {kind} launches alone, got "
+                             f"{launches}")
+    if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0):
+        raise AssertionError(f"{label}: the image is not finite and positive")
+    out = dict(ms=dt * 1e3, msps=cfg.num_pixels / dt / 1e6,
+               bounces=launches[kind] / passes, launches=launches[kind],
+               mem=torch.cuda.max_memory_allocated() / 2**30, img=img)
+    log(f"{label}: warm-up pass {warm:.2f} s; {out['ms']:.3f} ms/pass, "
+        f"{out['msps']:.4f} Msamples/s over {passes} passes; the loop ran "
+        f"{out['bounces']:.2f} bounces a pass ({kind.upper()} launches a "
+        f"pass); peak device memory {out['mem']:.2f} GiB")
+    if out["ms"] > 60e3:
+        log(f"{label}: one pass took {out['ms'] / 1e3:.1f} s (over 60 s)")
+    return out
+
+
+def record_pass(scene, env, cam, cfg, **kw):
+    """One megakernel pass (sample 0) with its march calls recorded:
+    bounce 0, bounce 1 and the last bounce with a live lane, each
+    ``(origin, direction, active, None, cfg)`` cloned, and the pass's
+    per-lane bounce counts. Syncs once a bounce (the recording only)."""
+    real_march, real_trace = (march_kernel.march_resumable_cuda,
+                              integrator.megakernel_trace)
+    calls, traces = {}, []
+
+    def record(sc, o, d, c, active=None, init=None, **k):
+        b = record.bounce
+        record.bounce += 1
+        if b < 2 or bool(active.any()):
+            calls[min(b, 2)] = (b, (o.clone(), d.clone(), active.clone(),
+                                    init, c))
+        return real_march(sc, o, d, c, active=active, init=init, **k)
+    record.bounce = 0
+
+    def trace(*a, **k):
+        out = real_trace(*a, **k)
+        traces.append(out)
+        return out
+    march_kernel.march_resumable_cuda = record
+    integrator.megakernel_trace = trace
+    try:
+        render_image(scene, env, cam, cfg, spp=1, tonemapped=False, **kw)
+    finally:
+        march_kernel.march_resumable_cuda = real_march
+        integrator.megakernel_trace = real_trace
+    torch.cuda.synchronize()
+    names = [f"bounce {calls[j][0]}" for j in sorted(calls)]
+    return [calls[j][1] for j in sorted(calls)], names, traces[0].bounces
+
+
+def bounce_spread(bounces, label):
+    """The bounce by which 99% of a pass's lanes had stopped (a lane's hit
+    count is the bounce it stopped at, or one less), and the most."""
+    b = torch.sort(bounces.to(torch.int64)).values
+    q99, top = int(b[int(0.99 * (b.numel() - 1))]), int(b[-1])
+    log(f"{label}: 99% of lanes stopped by bounce {q99 + 1} ({q99} hits or "
+        f"fewer); the longest path {top} hits")
+    return q99 + 1, top
+
+
+def pass_profile(label, fn, ms):
+    """One torch.profiler pass: device busy, idle share of ``ms``, the top
+    kernels."""
+    fn()
+    prof = device_profile(fn, 1)
+    if prof is None:
+        log(f"{label}: device busy and idle not measured (the profiler saw "
+            f"no device activity)")
+        return None
+    busy, top = prof
+    log(f"{label}: one profiled pass, device busy {busy:.3f} ms, idle share "
+        f"{max(0.0, 1 - busy / ms) * 100:.1f}% of {ms:.3f} ms/pass; most "
+        f"device ms a pass: " + "; ".join(f"{n} {v:.3f}" for n, v in top))
+    return busy, top
+
+
+def phase_megakernel_cornell(dev):
+    """3g: the Cornell full megakernel at 480x480 on bench.py's protocol,
+    the loop's exit check at every 8 and 32 bounces and at the default; 3h:
+    the minimal Cornell megakernel at 512x512, diffuse_only. Then one
+    recorded pass of 3g (3j) and one profiled pass."""
+    cfg = cornell.full_config()
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    out = megakernel_passes("[3g] Cornell full megakernel 480x480", scene,
+                            env, cam, cfg, "k1a", MEGA_PASSES)
+    k_default = integrator.EXIT_CHECK_EVERY
+    out["syncs"] = host_syncs(lambda: render_image(
+        scene, env, cam, cfg, spp=1, sample_offset=7, tonemapped=False))
+    log(f"[3g] host syncs a pass: {out['syncs']} (the exit check every "
+        f"{k_default} bounces)")
+    for k in (8, 32, k_default):
+        integrator.EXIT_CHECK_EVERY = k
+        try:
+            r = megakernel_passes(f"[3g] exit check every {k} bounces",
+                                  scene, env, cam, cfg, "k1a", 3, first=8)
+            syncs = host_syncs(lambda: render_image(
+                scene, env, cam, cfg, spp=1, sample_offset=8,
+                tonemapped=False))
+        finally:
+            integrator.EXIT_CHECK_EVERY = k_default
+        log(f"[3g] exit check every {k}: {r['ms']:.3f} ms/pass, host syncs "
+            f"a pass {syncs}")
+    out["profile"] = pass_profile(
+        "[3g]", lambda: render_image(scene, env, cam, cfg, spp=1,
+                                     sample_offset=9, tonemapped=False),
+        out["ms"])
+    calls, names, bounces = record_pass(scene, env, cam, cfg)
+    out["q99"], _ = bounce_spread(bounces, "[3g] Cornell full")
+
+    mcfg = cornell.minimal_config().replace(resolution=(512, 512))
+    mscene, mcam = cornell.minimal_scene(dev), cornell.minimal_camera(dev)
+    mini = megakernel_passes(
+        "[3h] Cornell minimal megakernel 512x512 diffuse_only", mscene, env,
+        mcam, mcfg, "k1a", MEGA_PASSES, diffuse_only=True)
+    mini["syncs"] = host_syncs(lambda: render_image(
+        mscene, env, mcam, mcfg, spp=1, sample_offset=7, tonemapped=False,
+        diffuse_only=True))
+    log(f"[3h] host syncs a pass: {mini['syncs']}")
+    return out, mini, (scene, calls, names)
+
+
+def phase_megakernel_glass(dev):
+    """3i: the glass bunny megakernel at 1920x1080 (glass_config, the scene
+    animated to frame 12, the HDR sky), spp 1, with bunny_mxu off (K1c) and
+    on (K1d) in turns off, on, on, off; one recorded pass (3j) and one
+    profiled pass with K1c."""
+    cfg = bunny.glass_config()
+    scene = bunny.animated_scene(bunny.glass_scene(dev),
+                                 torch.tensor(12.0, device=dev))
+    env = bunny.glass_environment(device=dev)
+    cam = bunny.camera(cfg.width / cfg.height, dev)
+    out = {False: [], True: []}
+    for j, mxu in enumerate((False, True, True, False)):
+        kind = "k1d" if mxu else "k1c"
+        r = megakernel_passes(
+            f"[3i] glass bunny megakernel 1920x1080 bunny_mxu={mxu}", scene,
+            env, cam, cfg.replace(bunny_mxu=mxu), kind, GLASS_PASSES,
+            first=1 + 2 * j, warm=j < 2)
+        r.pop("img")
+        out[mxu].append(r)
+    for mxu in (False, True):
+        r = out[mxu][0]
+        r["syncs"] = host_syncs(lambda: render_image(
+            scene, env, cam, cfg.replace(bunny_mxu=mxu), spp=1,
+            sample_offset=20, tonemapped=False))
+        log(f"[3i] bunny_mxu={mxu}: host syncs a pass {r['syncs']}; "
+            f"{statistics.mean(v['ms'] for v in out[mxu]):.3f} ms/pass, "
+            f"{statistics.mean(v['msps'] for v in out[mxu]):.4f} Msamples/s "
+            f"(mean of two)")
+    prof = pass_profile(
+        "[3i] K1c", lambda: render_image(scene, env, cam, cfg, spp=1,
+                                         sample_offset=21, tonemapped=False),
+        out[False][0]["ms"])
+    calls, names, bounces = record_pass(scene, env, cam, cfg)
+    q99, top = bounce_spread(bounces, "[3i] glass")
+    return out, prof, q99, (scene, calls, names)
+
+
+def phase_megakernel_calls(cornell_rec, glass_rec):
+    """3j: the megakernel's own march calls (bounce 0, bounce 1, the last
+    bounce with a live lane) of one pass of 3g (K1a, whole) and of 3i (K1c
+    and K1d, the kernel timed on the whole call and held to the plain march
+    on every GLASS_SUBSET-th lane, where it is timed and bounded too: 2 M
+    lanes x 2048 trips are too many for the plain march; a call with at
+    most that many lanes active is held to it whole as well)."""
+    scene, calls, names = cornell_rec
+    mega_a = phase_in_frame_analytic({"cornell megakernel": (scene, calls)},
+                                     tag="[3j]", names=names)
+    glass, gcalls, gnames = glass_rec
+    sub = [tuple(v[::GLASS_SUBSET].contiguous() for v in (o, d, a)) + (i, c)
+           for o, d, a, i, c in gcalls]
+    for mxu in (False, True):
+        for (o, d, a, i, c), name in zip(gcalls, gnames):
+            c = c.replace(bunny_mxu=mxu)
+            run = lambda: march_kernel.march_resumable_cuda(
+                glass, o, d, c, active=a)
+            run()
+            note = ""
+            if int(a.sum()) <= o.shape[0] // GLASS_SUBSET:
+                # few lanes active: the plain march marches them alone
+                if mxu:
+                    note = "; " + compare_close(glass, o, d, c, a)[2]
+                else:
+                    compare(glass, o, d, c, a)
+                    note = "; bit-equal to the plain march"
+            log(f"[3j] glass megakernel {name}, whole call: "
+                f"{march_kernel.variant(glass, c).upper()} "
+                f"{median_ms(run, 5):.4f} ms at {o.shape[0]} lanes, "
+                f"{int(a.sum())} active{note}")
+    mega_cd = pooled_calls(
+        ((f"{GLASS_CALLS}, K1c", glass, sub, False),
+         (f"{GLASS_CALLS}, K1d", glass, sub, True)),
+        tag="[3j]", names=gnames)
+    return mega_a["cornell megakernel"], mega_cd
+
+
+def phase_goldens_megakernel(dev):
+    """3k: the nine self-goldens through render_image on the card, each
+    >= 35 dB against assets/goldens/<name>.png; the march kernel each runs
+    (K1b for the ROLLBACK / RELATIVE / CONE configs, K1c for the bunny)."""
+    got = {}
+    for name in GOLDENS:
+        march_kernel.reset_launches()
+        img = render_golden(name, dev)
+        launches = {k: v for k, v in march_kernel.LAUNCHES.items() if v}
+        db = score_golden(img, os.path.join(REPO, "assets", "goldens",
+                                            f"{name}.png"), name)
+        want = ("k1c" if name.startswith("bunny") else
+                "k1b" if name in ("cornell_v3", "scene_demo", "tokyo")
+                else "k1a")
+        if list(launches) != [want]:
+            raise AssertionError(f"{name}: expected {want} alone, got "
+                                 f"{launches}")
+        got[name] = (db, launches[want])
+        log(f"[3k] {name} golden through render_image on the card: "
+            f"{db:.2f} dB, {launches[want]} {want.upper()} launches")
+    return got
+
+
+def phase_offline_app():
+    """3l: the offline renderer as a user runs it, in a subprocess."""
+    out = os.path.join(REPO, "build", "offline_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "raytracingpbr_tpu_torch.apps.offline",
+           "--scene", "cornell", "--frames", "1", "--spp", "1", "--scale",
+           "1", "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"offline app: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    img = read_png(os.path.join(out, "frame_00000.png"))
+    if img.shape != (480, 480, 3) or not img.mean() > 0:
+        raise AssertionError(f"offline app: PNG {img.shape}, mean "
+                             f"{img.mean()}")
+    log(f"[3l] {' '.join(cmd[1:])}: rc 0 in {secs:.1f} s, a 480x480 PNG of "
+        f"mean {img.mean():.2f}; {proc.stdout.strip().splitlines()[-1]}")
+    return secs
 
 
 def report(label, u):
@@ -1087,6 +1426,15 @@ def main():
                 in_frame["metal 3840x2160, K1d"]["err"])
     phase_golden(dev)
     phase_golden_demo(dev)
+    mega_cornell, mega_minimal, cornell_rec = phase_megakernel_cornell(dev)
+    mega_glass, _, glass_q99, glass_rec = phase_megakernel_glass(dev)
+    mega_a, mega_cd = phase_megakernel_calls(cornell_rec, glass_rec)
+    del cornell_rec, glass_rec
+    err_a = max(err_a, mega_a["err"])
+    err_c = max(err_c, mega_cd[f"{GLASS_CALLS}, K1c"]["err"])
+    err_d = max(err_d, mega_cd[f"{GLASS_CALLS}, K1d"]["err"])
+    goldens = phase_goldens_megakernel(dev)
+    offline_s = phase_offline_app()
     demo_label = "scene_demo (ROLLBACK_TO_ONE + RELATIVE)"
     kb_ms, pb_ms = times_b[demo_label]
 
@@ -1115,6 +1463,18 @@ def main():
         + f"; K1a in the Cornell frame "
         f"{in_frame_ab['cornell 480x480']['device_ms'] / 4:.4f} ms a call "
         f"back to back")
+    glass_ms = lambda mxu: statistics.mean(v["ms"] for v in mega_glass[mxu])
+    log(f"[6] megakernel: Cornell full 480x480 {mega_cornell['msps']:.4f} "
+        f"Msamples/s ({mega_cornell['ms']:.3f} ms/pass, "
+        f"{mega_cornell['bounces']:.1f} bounces, {mega_cornell['syncs']} "
+        f"host syncs a pass); Cornell minimal 512x512 "
+        f"{mega_minimal['ms']:.3f} ms/pass ({mega_minimal['bounces']:.1f} "
+        f"bounces); glass 1920x1080 K1c {glass_ms(False):.3f} / K1d "
+        f"{glass_ms(True):.3f} ms/pass "
+        f"({mega_glass[False][0]['bounces']:.1f} bounces, 99% of lanes "
+        f"stopped by bounce {glass_q99}); nine goldens "
+        + ", ".join(f"{k} {v[0]:.2f}" for k, v in goldens.items())
+        + f" dB; offline app {offline_s:.1f} s")
     entry = lambda name, source, line, n, err, k, p, b: {
         "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
         "replaces": line, "launches": n, "max_abs_err": err, "ms": k,
@@ -1139,19 +1499,39 @@ def main():
                  in_frame_device_ms={f: in_frame_ab[f]["device_ms"] / 4
                                      for f in frames})
         return e
+
+    def megakernel(e, per_pass, calls):
+        """The entry with its launches a megakernel pass and its 3j calls'
+        time (K1a: back to back), bound and share."""
+        ms = calls.get("device_ms", calls["ms"])
+        e["megakernel"] = {"launches_per_pass": per_pass,
+                           "calls_ms": ms, "calls_bound_ms": calls["bound_ms"],
+                           "calls_share": calls["bound_ms"] / ms}
+        return e
+    k1b_goldens = sum(goldens[k][1] for k in ("cornell_v3", "scene_demo",
+                                              "tokyo"))
     log(json.dumps({"kernels": [
-        analytic(entry("march_k1a", "march.cu", f"{TPU_KERNEL}:297",
-                       launch_a, err_a, ka_ms, pa_ms, bound("k1a")),
-                 ("cornell 480x480",)),
+        megakernel(analytic(entry("march_k1a", "march.cu",
+                                  f"{TPU_KERNEL}:297", launch_a, err_a,
+                                  ka_ms, pa_ms, bound("k1a")),
+                            ("cornell 480x480",)),
+                   mega_cornell["bounces"], mega_a),
         analytic(entry("march_k1b", "march.cu", f"{TPU_KERNEL}:338",
                        launch_b, err_b, kb_ms, pb_ms, bound("k1b")),
-                 ("tokyo 2880x1620", "engine 768x432")),
-        pooled(entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156", launch_c,
-                     err_c, kc_ms, pc_ms, bound("k1c")), "k1c",
-               ("glass 1920x1080, K1c", "metal 3840x2160, K1c")),
-        pooled(entry("march_k1d", "march_mxu.cu", f"{TPU_KERNEL}:124",
-                     launch_d, err_d, kd_ms, pd_ms, bound("k1d")), "k1d",
-               ("glass 1920x1080, K1d", "metal 3840x2160, K1d")),
+                 ("tokyo 2880x1620", "engine 768x432"))
+        | {"megakernel": {"golden_launches": k1b_goldens}},
+        megakernel(pooled(entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156",
+                                launch_c, err_c, kc_ms, pc_ms,
+                                bound("k1c")), "k1c",
+                          ("glass 1920x1080, K1c", "metal 3840x2160, K1c")),
+                   mega_glass[False][0]["bounces"],
+                   mega_cd[f"{GLASS_CALLS}, K1c"]),
+        megakernel(pooled(entry("march_k1d", "march_mxu.cu",
+                                f"{TPU_KERNEL}:124", launch_d, err_d, kd_ms,
+                                pd_ms, bound("k1d")), "k1d",
+                          ("glass 1920x1080, K1d", "metal 3840x2160, K1d")),
+                   mega_glass[True][0]["bounces"],
+                   mega_cd[f"{GLASS_CALLS}, K1d"]),
         entry("fma_chains_k2", "speedlight.cu",
               "raytracingpbr_tpu/utils/speedlight.py:94", launch_2, err_2,
               k2_ms, k2_plain, (k2_bound, "operations"))]}))

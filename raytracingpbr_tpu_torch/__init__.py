@@ -15,8 +15,8 @@ from .core.types import (Camera, FrameState, Rays, make_camera,
                          make_frame_state, make_rays, refresh)
 from .ops.ibl import (Environment, black_sky, constant_sky, gradient_sky,
                       white_sky)
-from .ops.integrator import (render_frame, render_image_progressive,
-                             wavefront_step)
+from .ops.integrator import (megakernel_trace, render_frame, render_image,
+                             render_image_progressive, wavefront_step)
 from .ops.march import march, march_resumable
 from .ops.scene import ObjectSpec, Scene, make_scene
 from .ops.sdf import SHAPE

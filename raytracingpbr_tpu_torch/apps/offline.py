@@ -1,0 +1,151 @@
+"""Offline batch renderer (port of ``raytracingpbr_tpu/apps/offline.py``):
+per frame, the animated scene, ``spp`` sample passes, the tonemap and a
+PNG, resumable after an interruption. Runs on the card; ``--device cpu``
+exists for the tests.
+
+Usage:
+    python -m raytracingpbr_tpu_torch.apps.offline --scene bunny_glass \
+        --frames 240 --spp 64 --out out/ --scale 4
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+from ..config import RenderConfig
+from ..core.device import resolve
+from ..core.types import Camera
+from ..io import image as imageio
+from ..ops import integrator as integ
+from ..ops.ibl import Environment
+from ..utils.profiling import MetricsLogger
+
+
+def render_animation(scene_fn, env: Environment, cam: Camera,
+                     cfg: RenderConfig, frames: int, spp: int,
+                     out_dir: str, start_frame: int = 0,
+                     metrics_path: str | None = None,
+                     integrator: str = "megakernel",
+                     **trace_kw) -> None:
+    """Render ``frames`` stills to ``out_dir/frame_%05d.png``;
+    ``scene_fn(frame) -> Scene`` supplies the per-frame animated scene.
+
+    ``integrator``: "megakernel" (``render_image``, the example variants'
+    estimator; frame f draws samples ``f * spp`` onward) or "wavefront"
+    (``render_image_progressive`` run to at least ``spp`` deposits per
+    pixel, the engine's estimator, with the same sample pattern every
+    frame). ``start_frame`` -1 resumes after the frames already in
+    ``out_dir``. ``trace_kw`` goes to ``render_image``; the wavefront
+    takes only its ``exposure``."""
+    os.makedirs(out_dir, exist_ok=True)
+    if start_frame < 0:
+        start_frame = 0
+        while os.path.exists(
+                os.path.join(out_dir, f"frame_{start_frame:05d}.png")):
+            start_frame += 1
+        if start_frame:
+            print(f"resuming at frame {start_frame}", flush=True)
+    exposure = trace_kw.get("exposure", 1.0)
+    if integrator == "wavefront":
+        unsupported = sorted(set(trace_kw) - {"exposure"})
+        if unsupported:
+            print(f"wavefront integrator ignores {unsupported} (the "
+                  "engine's shading applies)", flush=True)
+    log = MetricsLogger(metrics_path)
+    try:
+        for f in range(start_frame, frames):
+            t0 = time.time()
+            scene = scene_fn(f)
+            if integrator == "wavefront":
+                img, _ = integ.render_image_progressive(
+                    scene, env, cam, cfg, spp, exposure=exposure)
+            else:
+                img = integ.render_image(scene, env, cam, cfg, spp=spp,
+                                         sample_offset=f * spp, **trace_kw)
+            img = img.cpu().numpy()
+            dt = time.time() - t0
+            path = os.path.join(out_dir, f"frame_{f:05d}.png")
+            imageio.write_png(path, img)
+            log.log(frame=f, dt=round(dt, 4),
+                    samples_per_s=cfg.num_pixels * spp / max(dt, 1e-9))
+            print(f"frame {f}/{frames}: {dt:.2f}s -> {path}", flush=True)
+    finally:
+        log.close()
+
+
+def main(argv=None):
+    from ..models import bunny, cornell, demo
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--scene", default="bunny_glass",
+                   choices=["bunny_glass", "bunny_metal", "cornell",
+                            "cornell_minimal", "demo"])
+    p.add_argument("--frames", type=int, default=8)
+    p.add_argument("--spp", type=int, default=16)
+    p.add_argument("--scale", type=int, default=4,
+                   help="resolution divisor vs the reference workload")
+    p.add_argument("--out", default="out")
+    p.add_argument("--metrics", default=None)
+    p.add_argument("--start-frame", type=int, default=-1,
+                   help="first frame to render; -1 = auto-resume past "
+                        "frames already present in --out")
+    p.add_argument("--integrator", default="megakernel",
+                   choices=["megakernel", "wavefront"])
+    p.add_argument("--nee", action="store_true",
+                   help="environment importance sampling + specular MIS "
+                        "(not ported yet)")
+    p.add_argument("--device", default=None,
+                   help="where to render: the card unless given (the "
+                        "tests pass 'cpu')")
+    args = p.parse_args(argv)
+    if args.nee:
+        raise NotImplementedError("--nee (environment sampling, NEE/MIS) is "
+                                  "not ported yet (ROADMAP Queue 1, item 12)")
+    dev = resolve(args.device)
+
+    if args.scene in ("bunny_glass", "bunny_metal"):
+        if args.scene == "bunny_glass":
+            base = bunny.glass_scene(dev)
+            cfg = bunny.glass_config(scale=args.scale)
+        else:
+            base = bunny.metal_scene(dev)
+            cfg = bunny.metal_config(scale=args.scale)
+        cam = bunny.camera(cfg.width / cfg.height, dev)
+        env = bunny.glass_environment(device=dev)
+        scene_fn = lambda f: bunny.animated_scene(base, f)
+        kw = {}
+    elif args.scene == "cornell":
+        s = cornell.full_scene(dev)
+        cfg = cornell.full_config()
+        cam = cornell.full_camera(dev)
+        env = cornell.sky(dev)
+        scene_fn = lambda f: s
+        kw = dict(exposure=0.6)
+    elif args.scene == "cornell_minimal":
+        s = cornell.minimal_scene(dev)
+        cfg = cornell.minimal_config()
+        cam = cornell.minimal_camera(dev)
+        env = cornell.sky(dev)
+        scene_fn = lambda f: s
+        kw = dict(diffuse_only=True)
+    else:
+        s = demo.engine_scene(dev)
+        cfg = demo.engine_config()
+        cam = demo.engine_camera(dev)
+        env = demo.engine_environment(device=dev)
+        scene_fn = lambda f: s
+        kw = {}
+    if args.scale > 1 and not args.scene.startswith("bunny"):
+        # the bunny configs take the scale themselves; divide the rest here
+        cfg = cfg.replace(resolution=(cfg.width // args.scale,
+                                      cfg.height // args.scale))
+
+    render_animation(scene_fn, env, cam, cfg, args.frames, args.spp,
+                     args.out, metrics_path=args.metrics,
+                     start_frame=args.start_frame,
+                     integrator=args.integrator, **kw)
+
+
+if __name__ == "__main__":
+    main()

@@ -26,7 +26,11 @@ _INV_2_24 = 1.0 / (1 << 24)
 
 def _u32(x, like: torch.Tensor) -> torch.Tensor:
     """Counter word as int64 in [0, 2**32), broadcast to ``like``'s shape
-    and device."""
+    and device. A Python int is filled in on the device: a tensor made
+    from it on the host would be copied over with a host sync."""
+    if isinstance(x, int):
+        return torch.full(like.shape, x & _MASK, dtype=torch.int64,
+                          device=like.device)
     x = torch.as_tensor(x, device=like.device)
     return torch.broadcast_to(x.to(torch.int64) & _MASK, like.shape)
 
@@ -109,6 +113,13 @@ def r2_uniform4(pixel_id: torch.Tensor, step, stream: int, seed: int = 0,
     return tuple(_to_unit_float((rot[k] + _mul32(n, _R2_A[k])) & _MASK,
                                 dtype)
                  for k in range(4))
+
+
+def sampler4(low_discrepancy: bool):
+    """The four-uniform sampler for draws indexed by a per-pixel sample
+    counter: :func:`r2_uniform4` under ``low_discrepancy``, else
+    :func:`uniform4`."""
+    return r2_uniform4 if low_discrepancy else uniform4
 
 
 def in_unit_disk(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:

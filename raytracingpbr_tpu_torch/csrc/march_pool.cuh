@@ -62,6 +62,7 @@
 
 #include <map>
 #include <mutex>
+#include <type_traits>
 #include <utility>
 
 #include "march_common.cuh"
@@ -73,8 +74,8 @@ constexpr int kPoolBlock = 256;  // slots a block; the queue holds as many
 // still could
 constexpr int kMarchShare = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
-// flags of a slot's lane
-constexpr int kHit = 1, kDone = 2, kLive = 4;
+// flags of a slot's lane; kCheck: it failed bounded() when the slot took it
+constexpr int kHit = 1, kDone = 2, kLive = 4, kCheck = 8;
 
 __device__ __forceinline__ void fold(float& best, int& best_i, float dist,
                                      int o) {
@@ -82,6 +83,54 @@ __device__ __forceinline__ void fold(float& best, int& best_i, float dist,
     best = dist;
     best_i = o;
   }
+}
+
+// The running min at a point with a NaN or an infinite coordinate, as the
+// plain version finds it (march.cu's fold_non_finite, here on the pool's
+// staged scene). Its local coordinates are each NaN or infinite (0 * inf
+// and m * NaN in the matrix products), so of the analytic SDFs only a
+// sphere's can be taken: its norm of a point with a NaN coordinate is 0
+// (safe_norm), a distance of |0 - sx|; sd_shape's fmaxf would drop the NaN
+// of the others. A bunny is never taken: its support test sends a NaN
+// point inside, where the MLP gives NaN, and an infinite one outside, at
+// infinity. So such a point folds the spheres alone and never waits for
+// the MLP. Out of line, and reached only by lanes that fail bounded(), so
+// that the trips of the other warps keep their code.
+struct Nearest {
+  float d;
+  int i;
+};
+
+__device__ __noinline__ Nearest nearest_non_finite(const float* sp,
+                                                   const int* st, int n_obj,
+                                                   float x, float y,
+                                                   float z) {
+  Nearest b{1e3f, 0};
+  for (int o = 0; o < n_obj; ++o) {
+    if (st[o] != kSphere) continue;
+    const float* pr = sp + o * kParamUsed;
+    float px, py, pz;
+    to_local(pr, x, y, z, px, py, pz);
+    if (isnan(px) || isnan(py) || isnan(pz)) {
+      fold(b.d, b.i, fabsf(0.0f - pr[3]), o);
+    }
+  }
+  return b;
+}
+
+// Whether every point of the lane's trips in this call is finite. It is
+// when the origin, direction and t are under 1e18 in magnitude, the last
+// step s under 1e9 and w under 1e3 (a NaN fails each test): a trip moves t
+// by w times a distance of at most 1e3 (the running min's start), or by a
+// rollback s * (1 - w), so over a call's budget (under 2^31 trips) t stays
+// under 4e18 and the point o + t * d under 4e36, below FLT_MAX. The test
+// runs once a lane, when a slot takes it (kCheck); only a warp with a lane
+// that failed it runs the trips that test each point for
+// nearest_non_finite.
+__device__ __forceinline__ bool bounded(const Lane& L) {
+  return fabsf(L.ox) < 1e18f && fabsf(L.oy) < 1e18f && fabsf(L.oz) < 1e18f &&
+         fabsf(L.dx) < 1e18f && fabsf(L.dy) < 1e18f && fabsf(L.dz) < 1e18f &&
+         fabsf(L.t) < 1e18f && fabsf(L.s) < 1e9f && fabsf(L.w) < 1e3f;
 }
 
 // The block's slots in shared memory, a field an array of kPoolBlock: the
@@ -109,7 +158,7 @@ struct Slots {
     L.done = (flags[k] & kDone) != 0;
     return L;
   }
-  __device__ void put(int k, const Lane& L) const {
+  __device__ void put(int k, const Lane& L, bool check) const {
     ox[k] = L.ox;
     oy[k] = L.oy;
     oz[k] = L.oz;
@@ -122,9 +171,11 @@ struct Slots {
     d[k] = L.d;
     idx[k] = L.idx;
     fin[k] = L.fin;
-    flags[k] = (L.hit ? kHit : 0) | (L.done ? kDone : 0) | kLive;
+    flags[k] = (L.hit ? kHit : 0) | (L.done ? kDone : 0) | kLive |
+               (check ? kCheck : 0);
   }
   __device__ bool live(int k) const { return (flags[k] & kLive) != 0; }
+  __device__ bool check(int k) const { return (flags[k] & kCheck) != 0; }
 };
 
 // Gives slot k the warp's next lane if it is idle. A lane that needs no
@@ -151,7 +202,7 @@ __device__ __forceinline__ void refill(const MarchArgs& a, const Slots& sl,
           store_lane(a, n, L);
         } else {
           live = true;
-          sl.put(k, L);
+          sl.put(k, L, !bounded(L));
           sl.id[k] = n;
           sl.trip[k] = 0;
         }
@@ -218,53 +269,71 @@ __global__ void __launch_bounds__(kPoolBlock, Engine::kMinBlocks)
     {
       Lane L{};
       int trip = 0;
+      bool check = false;  // the lane's points may be non-finite
       if (live) {
         L = sl.get(k);
         trip = sl.trip[k];
+        check = sl.check(k);
       }
       bool marching = live;
-      while (true) {
-        const int n_march = __popc(__ballot_sync(kFullMask, marching));
-        const int n_live = __popc(__ballot_sync(kFullMask, live));
-        if (n_march == 0 || kMarchShare * n_march < n_live) break;
-        if (lane == 0) slots += 32;
-        if (!marching) continue;
-        x = L.ox + L.t * L.dx;
-        y = L.oy + L.t * L.dy;
-        z = L.oz + L.t * L.dz;
-        best = 1e3f;
-        best_i = 0;
-        for (int o = 0; o < a.n_obj; ++o) {
-          const float* pr = sp + o * kParamUsed;
-          float px, py, pz;
-          to_local(pr, x, y, z, px, py, pz);
-          if (st[o] != kBunny) {
-            fold(best, best_i,
-                 fabsf(sd_shape(st[o], px, py, pz, pr[3], pr[4], pr[5],
-                                a.box_round)),
-                 o);
+      // the trips, compiled twice: a warp whose lanes all pass bounded()
+      // runs them without the test of each point
+      auto trips = [&](auto checked) {
+        while (true) {
+          const int n_march = __popc(__ballot_sync(kFullMask, marching));
+          const int n_live = __popc(__ballot_sync(kFullMask, live));
+          if (n_march == 0 || kMarchShare * n_march < n_live) break;
+          if (lane == 0) slots += 32;
+          if (!marching) continue;
+          x = L.ox + L.t * L.dx;
+          y = L.oy + L.t * L.dy;
+          z = L.oz + L.t * L.dz;
+          best = 1e3f;
+          best_i = 0;
+          if (decltype(checked)::value &&
+              !(isfinite(x) && isfinite(y) && isfinite(z))) {
+            const Nearest b = nearest_non_finite(sp, st, a.n_obj, x, y, z);
+            best = b.d;
+            best_i = b.i;
           } else {
-            const float r = sqrtf(px * px + py * py + pz * pz);
-            if (r > 1.0f) {
-              fold(best, best_i, fabsf(r - 0.8f), o);
-            } else {
-              waiting = true;  // K1c's support test: NaN goes inside
+            for (int o = 0; o < a.n_obj; ++o) {
+              const float* pr = sp + o * kParamUsed;
+              float px, py, pz;
+              to_local(pr, x, y, z, px, py, pz);
+              if (st[o] != kBunny) {
+                fold(best, best_i,
+                     fabsf(sd_shape(st[o], px, py, pz, pr[3], pr[4], pr[5],
+                                    a.box_round)),
+                     o);
+              } else {
+                const float r = sqrtf(px * px + py * py + pz * pz);
+                if (r > 1.0f) {
+                  fold(best, best_i, fabsf(r - 0.8f), o);
+                } else {
+                  waiting = true;  // K1c's support test
+                }
+              }
             }
           }
+          if (waiting) {
+            marching = false;
+            continue;
+          }
+          advance<POLICY, CRIT, BOUND>(L, a, bound2, x, y, z, best, best_i,
+                                       trip);
+          if (L.done || ++trip == a.budget) {
+            store_lane(a, sl.id[k], L);
+            live = marching = false;
+          }
         }
-        if (waiting) {
-          marching = false;
-          continue;
-        }
-        advance<POLICY, CRIT, BOUND>(L, a, bound2, x, y, z, best, best_i,
-                                     trip);
-        if (L.done || ++trip == a.budget) {
-          store_lane(a, sl.id[k], L);
-          live = marching = false;
-        }
+      };
+      if (__any_sync(kFullMask, check)) {
+        trips(std::true_type{});
+      } else {
+        trips(std::false_type{});
       }
       if (live) {
-        sl.put(k, L);
+        sl.put(k, L, check);
         sl.trip[k] = trip;
       } else {
         sl.flags[k] = 0;
@@ -304,6 +373,7 @@ __global__ void __launch_bounds__(kPoolBlock, Engine::kMinBlocks)
     }
     // the waiting slot's step
     if (waiting) {
+      const bool check = sl.check(k);
       Lane L = sl.get(k);
       const int trip = sl.trip[k];
       advance<POLICY, CRIT, BOUND>(L, a, bound2, x, y, z, best, best_i,
@@ -312,7 +382,7 @@ __global__ void __launch_bounds__(kPoolBlock, Engine::kMinBlocks)
         store_lane(a, sl.id[k], L);
         sl.flags[k] = 0;
       } else {
-        sl.put(k, L);
+        sl.put(k, L, check);
         sl.trip[k] = trip + 1;
       }
     }

@@ -1,24 +1,31 @@
-"""Progressive wavefront integrator (port of the wavefront half of
-``raytracingpbr_tpu/ops/integrator.py``).
+"""The two integrators (port of ``raytracingpbr_tpu/ops/integrator.py``).
 
-Each ``wavefront_step`` advances every pixel's path by one bounce segment:
-depth-linear roulette, deposit of finished paths, thin-lens respawn, then
-one march + surface interaction. With ``cfg.march_split`` the march runs at
-most that many trips per step and unfinished lanes carry their exact loop
-state in ``FrameState.march_state`` / ``march_cum``.
+Progressive wavefront: each ``wavefront_step`` advances every pixel's path
+by one bounce segment: depth-linear roulette, deposit of finished paths,
+thin-lens respawn, then one march + surface interaction. With
+``cfg.march_split`` the march runs at most that many trips per step and
+unfinished lanes carry their exact loop state in ``FrameState.march_state``
+/ ``march_cum``.
+
+Megakernel: ``megakernel_trace`` runs a batch of paths bounce by bounce to
+their end (EXP roulette, an unsplit march, the interaction or the sky, the
+brightness stop), and ``render_image`` averages ``spp`` such samples per
+pixel into a still.
 
 Every random draw is counter-derived from ``(pixel_id, step, stream,
-seed)``. Not ported yet (raise NotImplementedError): environment sampling
-(NEE/MIS), gradients and temporal reprojection; the megakernel integrator.
+seed)``. Not ported yet (raise NotImplementedError, naming the ROADMAP
+item that brings them): environment sampling (NEE/MIS, item 12),
+gradients (scan-AD and path replay, item 13) and temporal reprojection
+(item 14).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import RenderConfig
+from ..config import RenderConfig, Roulette
 from ..core import rng as rnglib
 from ..core.math import brightness
 from ..core.types import (NO_HIT_T, Camera, FrameState, Rays,
@@ -46,15 +53,19 @@ def _where_rays(mask: torch.Tensor, a: Rays, b: Rays) -> Rays:
                   for f in dataclasses.fields(Rays)))
 
 
-def _check_supported(cfg: RenderConfig, differentiable: bool = False):
+def _check_supported(cfg: RenderConfig, differentiable=False):
     if cfg.env_sampling:
         raise NotImplementedError("environment sampling (NEE/MIS) is not "
-                                  "ported yet")
+                                  "ported yet (ROADMAP Queue 1, item 12)")
+    if differentiable == "replay":
+        raise NotImplementedError("path replay (differentiable='replay') is "
+                                  "not ported yet (ROADMAP Queue 1, item 13)")
     if differentiable:
-        raise NotImplementedError("differentiable rendering is not ported "
-                                  "yet")
+        raise NotImplementedError("differentiable rendering (scan-AD) is not "
+                                  "ported yet (ROADMAP Queue 1, item 13)")
     if cfg.reprojection:
-        raise NotImplementedError("temporal reprojection is not ported yet")
+        raise NotImplementedError("temporal reprojection is not ported yet "
+                                  "(ROADMAP Queue 1, item 14)")
 
 
 def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
@@ -319,3 +330,157 @@ def render_image_progressive(scene: Scene, env: Environment, cam: Camera,
     # flat x-major (W*H) -> (H, W, 3), flipped so row 0 is the top
     img = img.reshape(cfg.width, cfg.height, 3).permute(1, 0, 2)
     return torch.flip(img, dims=(0,)), state
+
+
+# ---------------------------------------------------------------------------
+# Megakernel
+# ---------------------------------------------------------------------------
+
+# The forward loop ends once no lane is alive. It asks the card every
+# EXIT_CHECK_EVERY bounces, and the answer stalls the host until the bounce
+# has run; a bounce with no lane alive changes nothing (every update is
+# gated by ``alive``), so the image is the same for any value, but it costs
+# as much as any other. Measured on the H100 (PERF.md), asking every bounce
+# beat every 2, 4, 8 and 16 on the Cornell pass by 5-71% and came within 4%
+# of the best (every 8) on the glass pass.
+EXIT_CHECK_EVERY = 1
+_MASK = 0xFFFFFFFF
+
+
+class TraceResult(NamedTuple):
+    color: torch.Tensor    # (N, 3) radiance estimate per ray
+    bounces: torch.Tensor  # (N,) i32 bounce count (diagnostics)
+
+
+def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
+                     pixel_id: torch.Tensor, sample_idx: int,
+                     cfg: RenderConfig, diffuse_only: bool = False,
+                     differentiable=False, roughness_fresnel: bool = True,
+                     restart_at_hit: bool = True,
+                     reflect_kill: Optional[bool] = None) -> TraceResult:
+    """Full bounce loop per sample: EXP russian roulette
+    (``1 - 1/exp(i/light_quality)``), an unsplit march of
+    ``cfg.max_raymarch`` trips gated by ``alive``, the interaction, the
+    brightness stop; a miss multiplies the sky color and stops. Forward
+    only: ``differentiable`` True or ``"replay"`` raises, as does
+    ``cfg.env_sampling``.
+
+    ``diffuse_only`` is the minimal Cornell box's shading: a cosine
+    hemisphere about the outward normal, the albedo as the throughput.
+    ``reflect_kill`` (None: ``roughness_fresnel``) zeroes a below-surface
+    reflection. ``sample_idx``: the sample's uint32 index (an int); the
+    bounce's RNG counter is ``sample_idx * cfg.max_raytrace + i`` modulo
+    2**32, as the reference's uint32 arithmetic wraps. The loop asks
+    whether any lane is alive every :data:`EXIT_CHECK_EVERY` bounces; the
+    result does not depend on it."""
+    _check_supported(cfg, differentiable)
+    if reflect_kill is None:
+        reflect_kill = roughness_fresnel
+    dtype = rays.color.dtype
+    max_bounce = cfg.max_raytrace
+    base = (int(sample_idx) & _MASK) * max_bounce
+
+    origin, direction, color = rays.origin, rays.direction, rays.color
+    alive = torch.ones(origin.shape[:1], dtype=torch.bool,
+                       device=origin.device)
+    bounces = torch.zeros(origin.shape[:1], dtype=torch.int32,
+                          device=origin.device)
+    with torch.no_grad():
+        i = 0
+        while i < max_bounce:
+            counter = (base + i) & _MASK
+            if cfg.roulette == Roulette.EXP:
+                # a lane that dies keeps its colour times the probability,
+                # and one that survives gets no 1/p (the reference's quirk)
+                inv_pdf = torch.exp(torch.tensor(i, dtype=dtype)
+                                    / cfg.light_quality)
+                roulette_prob = float(1.0 - 1.0 / inv_pdf)
+                u = rnglib.uniform(pixel_id, counter, _S_ROULETTE, cfg.seed,
+                                   dtype)
+                die = u < roulette_prob
+                color = torch.where((alive & die)[:, None],
+                                    color * roulette_prob, color)
+                alive = alive & ~die
+            # (DEPTH_LINEAR roulette belongs to the wavefront.)
+
+            res = marchlib.march(scene, origin, direction, cfg, active=alive)
+
+            u4 = rnglib.uniform4(pixel_id, counter, _S_SHADE, cfg.seed,
+                                 dtype)
+            mat = scenelib.materials_at(scene, res.index)
+            if diffuse_only:
+                normal = scenelib.calc_normal(scene, res.index, res.position)
+                outer = (direction * normal).sum(-1) < 0.0
+                normal = _where(outer, normal, -normal)
+                new_dir = rnglib.hemispheric(normal, u4[0], u4[1])
+                new_origin = res.position
+                color_scale = mat.albedo
+            else:
+                inter = shadelib.ray_surface_interaction(
+                    scene, res.index, res.position, direction, u4, cfg,
+                    roughness_fresnel=roughness_fresnel,
+                    restart_at_hit=restart_at_hit,
+                    reflect_kill=reflect_kill)
+                new_dir, new_origin = inter.direction, inter.origin
+                color_scale = inter.color_scale
+
+            # hit: throughput, emission, brightness termination
+            color_hit = color * color_scale
+            intensity = brightness(color_hit)
+            color_hit = color_hit * mat.emission
+            visible = brightness(color_hit)
+            stop_hit = ((intensity < visible) | (visible < cfg.visibility[0])
+                        | (visible > cfg.visibility[1]))
+            # miss: the sky, and stop (black_background is the wavefront's)
+            color_miss = color * sky_color(env, direction)
+
+            on = alive & res.hit
+            color = _where(on, color_hit,
+                           _where(alive & ~res.hit, color_miss, color))
+            origin = _where(on, new_origin, origin)
+            direction = _where(on, new_dir, direction)
+            bounces = bounces + on.to(torch.int32)
+            alive = on & ~stop_hit
+            i += 1
+            if i % EXIT_CHECK_EVERY == 0 and not bool(alive.any()):
+                break
+    # paths still alive after max_raytrace bounces keep their colour
+    return TraceResult(color, bounces)
+
+
+def render_image(scene: Scene, env: Environment, cam: Camera,
+                 cfg: RenderConfig, spp: Optional[int] = None,
+                 sample_offset: int = 0, exposure=1.0,
+                 diffuse_only: bool = False, differentiable=False,
+                 tonemapped: bool = True, roughness_fresnel: bool = True,
+                 restart_at_hit: bool = True,
+                 reflect_kill: Optional[bool] = None) -> torch.Tensor:
+    """Offline still: the mean of ``spp`` megakernel samples per pixel
+    (sample indices ``sample_offset + s`` modulo 2**32), tonemapped unless
+    ``tonemapped=False``. Each sample draws its camera ray through
+    ``rng.sampler4(cfg.low_discrepancy)``. Runs on the scene's device.
+    Returns (H, W, 3), row 0 at the top."""
+    _check_supported(cfg, differentiable)
+    n = cfg.num_pixels
+    spp = spp if spp is not None else cfg.samples_per_pixel
+    dev = scene.device
+    pixel_id = torch.arange(n, dtype=torch.int64, device=dev)
+    sampler = rnglib.sampler4(cfg.low_discrepancy)
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    for s in range(spp):
+        idx = (int(sample_offset) + s) & _MASK
+        u_cam = sampler(pixel_id, idx, _S_CAMERA, cfg.seed)
+        uv = cameralib.pixel_uv(pixel_id, cfg.width, cfg.height, u_cam[0],
+                                u_cam[1])
+        rays = cameralib.get_ray(cam, uv, u_cam[2], u_cam[3])
+        out = megakernel_trace(scene, env, rays, pixel_id, idx, cfg,
+                               diffuse_only=diffuse_only,
+                               roughness_fresnel=roughness_fresnel,
+                               restart_at_hit=restart_at_hit,
+                               reflect_kill=reflect_kill)
+        accum = accum + out.color
+    mean = accum / spp
+    img = postlib.tonemap(mean, cfg, exposure) if tonemapped else mean
+    # flat x-major (W*H) -> (H, W, 3), flipped so row 0 is the top
+    img = img.reshape(cfg.width, cfg.height, 3).permute(1, 0, 2)
+    return torch.flip(img, dims=(0,))

@@ -1,9 +1,11 @@
 """Enhanced sphere tracing (port of ``raytracingpbr_tpu/ops/march.py``).
 
-``march_resumable_plain`` is the plain PyTorch march: the whole flat batch
+``march_resumable_plain`` is the plain PyTorch march: the flat batch
 advances in lock-step with per-lane masks until every lane has hit or
-escaped, or the trip budget is spent. It is the oracle for the CUDA march
-kernels (``kernels/march_kernel.py``), and on the CPU it is the march. Its
+escaped, or the trip budget is spent; the trips run on the live lanes
+alone, gathered anew whenever half of those in work are done. It is the
+oracle for the CUDA march kernels (``kernels/march_kernel.py``), and on
+the CPU it is the march. Its
 ``nearest`` evaluates the bunny MLP written out in K1c's order of
 operations (about 150 elementwise launches a trip on the card), so the
 two agree bit for bit there; with ``cfg.bunny_mxu`` it evaluates the MLP
@@ -57,7 +59,12 @@ def _march_loop(scene: Scene, origin, direction, cfg: RenderConfig,
     0, ``hit`` False) and echo their init ``(t, w, s, d)``; the wavefront's
     split carry relies on that. ``on_trip(pos, live)``, if given, sees
     each trip's points and live lanes (work accounting,
-    ``utils/speedlight``)."""
+    ``utils/speedlight``).
+
+    Without ``on_trip`` the trips run on the live lanes alone: whenever at
+    most half of the lanes in work are live, the loop writes them back and
+    gathers the live ones. Every lane's arithmetic is the same either way;
+    only the lanes that a trip computes and then discards change."""
     n = origin.shape[0]
     kw = dict(dtype=origin.dtype, device=origin.device)
     full = lambda v: torch.full((n,), v, **kw)
@@ -73,10 +80,23 @@ def _march_loop(scene: Scene, origin, direction, cfg: RenderConfig,
     fin = torch.where(done, 0, cfg.max_raymarch).to(torch.int32)
 
     bound2 = scenelib.escape_bound2(scene, cfg)
+    # the lanes in work (None: all) and the whole batch's state, written
+    # back when the lanes in work change
+    ids, whole = None, None
+    o_w, d_w = origin, direction
 
     i = 0
-    while i < cfg.max_raymarch and not bool(done.all()):
-        pos = origin + t[:, None] * direction
+    while i < cfg.max_raymarch:
+        n_live = int((~done).sum())
+        if n_live == 0:
+            break
+        if on_trip is None and 2 * n_live <= done.shape[0]:
+            whole = _write_back(whole, ids, (t, w, s, d, index, hit, fin,
+                                             done))
+            ids = torch.nonzero(~whole[7]).flatten()
+            t, w, s, d, index, hit, fin, done = (v[ids] for v in whole)
+            o_w, d_w = origin[ids], direction[ids]
+        pos = o_w + t[:, None] * d_w
         if on_trip is not None:
             on_trip(pos, ~done)
         idx_now, dist = scenelib.nearest(scene, pos,
@@ -113,7 +133,7 @@ def _march_loop(scene: Scene, origin, direction, cfg: RenderConfig,
         escaped = t_new >= cfg.max_dis
         if bound2 is not None:
             escaped = escaped | ((dot(pos, pos) > bound2)
-                                 & (dot(pos, direction) > 0.0))
+                                 & (dot(pos, d_w) > 0.0))
         done_new = done | (upd & (hit_now | escaped))
 
         t = t_new
@@ -124,7 +144,17 @@ def _march_loop(scene: Scene, origin, direction, cfg: RenderConfig,
         fin = torch.where(live & done_new, i + 1, fin)
         done = done_new
         i += 1
+    t, w, s, d, index, hit, fin, done = _write_back(
+        whole, ids, (t, w, s, d, index, hit, fin, done))
     return ResumableResult(t, index, hit, fin, w, s, d, done.to(torch.int32))
+
+
+def _write_back(whole, ids, work):
+    """The whole batch's state with the lanes in work (``ids``; None: all
+    of them) replaced by ``work``."""
+    if ids is None:
+        return tuple(work)
+    return tuple(v.index_copy(0, ids, u) for v, u in zip(whole, work))
 
 
 def march_resumable_plain(scene: Scene, origin: torch.Tensor,

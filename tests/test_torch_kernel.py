@@ -37,7 +37,8 @@ from raytracingpbr_tpu_torch.ops.scene import (_BUFFERS, ObjectSpec, Scene,
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE, BunnyMLP, bunny_mlp_eval
 from raytracingpbr_tpu_torch.utils import speedlight
 
-from .torch_helpers import (cuda_device, many_objects_scene,  # noqa: F401
+from .torch_helpers import (bunny_beside_shapes,  # noqa: F401
+                            cuda_device, many_objects_scene,
                             mixed_analytic_scene, random_rays)
 
 pytestmark = pytest.mark.cuda
@@ -215,23 +216,58 @@ def test_every_analytic_instance(cuda_device, policy, crit, bound):
     _gated_resumed(scene, o, d, cfg, seed=7)
 
 
-@pytest.mark.parametrize("case", ["cornell", "mixed", "many_objects"])
+@pytest.mark.parametrize("case", ["cornell", "mixed", "many_objects",
+                                  "bunny_k1c", "bunny_k1d"])
 def test_non_finite_rays(cuda_device, case):
     """Rays whose origin or direction has a NaN or an infinite coordinate,
-    beside ordinary rays, for K1a and K1b: as in the plain march, only a
-    sphere can be nearest to such a point (``fold_non_finite``), where the
-    fast path's fmaxf would drop a NaN and a permutation read one axis."""
-    scene = {"cornell": cornell.full_scene, "mixed": mixed_analytic_scene,
-             "many_objects": many_objects_scene}[case](cuda_device)
-    o, d = _rays(1024, 8, (0.0, 0.0, 2.5), 0.4, cuda_device)
+    and rays whose origin or direction is finite but huge, beside ordinary
+    rays: as in the plain march, only a sphere can be nearest to a
+    non-finite point, where the fast path's fmaxf would drop a NaN and a
+    permutation read one axis. K1a and K1b (``fold_non_finite``) on
+    analytic scenes; K1c and K1d (``nearest_non_finite``, for lanes that
+    fail ``bounded``) on the bunny beside every analytic shape, K1c
+    bit-equal, K1d within the march bar and bit-equal on those rays, which
+    reach no MLP."""
+    bunny_case = case.startswith("bunny")
+    if bunny_case:
+        scene = bunny_beside_shapes(cuda_device)
+        o, d = _aimed_rays(1024, 8, cuda_device)
+    else:
+        scene = {"cornell": cornell.full_scene,
+                 "mixed": mixed_analytic_scene,
+                 "many_objects": many_objects_scene}[case](cuda_device)
+        o, d = _rays(1024, 8, (0.0, 0.0, 2.5), 0.4, cuda_device)
     bad = torch.tensor([float("nan"), float("inf"), -float("inf")],
                        device=cuda_device)
     k = torch.arange(0, 96, device=cuda_device)
     d[k, k % 3] = bad[k % 3]
     o[k + 96, k % 3] = bad[k % 3]
-    for cfg in (cornell.full_config(), demo.tokyo_config()):
-        res, ref = both(scene, o, d, cfg.replace(max_raymarch=32))
-        assert_bit_equal(res, ref)
+    # finite but huge: a point may overflow to infinity on the way
+    big = torch.tensor([1e20, -3e37, 3.3e38], device=cuda_device)
+    k = torch.arange(0, 32, device=cuda_device)
+    o[k + 192, k % 3] = big[k % 3]
+    d[k + 208, (k + 1) % 3] = big[k % 3]
+    if bunny_case:
+        cfgs = [bunny.glass_config(8).replace(bunny_mxu=case == "bunny_k1d")]
+        cfgs.append(cfgs[0].replace(omega=1.6, omega_policy=(
+            OmegaPolicy.ROLLBACK_TO_ONE), hit_criterion=HitCriterion.CONE))
+    else:
+        cfgs = [cornell.full_config(), demo.tokyo_config()]
+    for cfg in cfgs:
+        cfg = cfg.replace(max_raymarch=32)
+        if bunny_case:
+            assert march_kernel.variant(scene, cfg) == case[-3:]
+        res, ref = both(scene, o, d, cfg)
+        if case == "bunny_k1d":
+            tmarch.assert_march_close(scene, o, d, res, ref, cfg)
+            assert_bit_equal(*(tmarch.ResumableResult(*(v[:240] for v in r))
+                               for r in (res, ref)))
+        else:
+            assert_bit_equal(res, ref)
+        if bunny_case:
+            # the sphere (object 0) was nearest to some non-finite points
+            assert scene.shape_types[0] == SHAPE.SPHERE
+            assert bool((ref.d[:192] == scene.scale[0, 0]).any())
 
 
 def test_more_objects_than_staged_raise(cuda_device):

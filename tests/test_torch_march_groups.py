@@ -33,8 +33,8 @@ from raytracingpbr_tpu_torch.ops.scene import ObjectSpec, make_scene
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE
 
 from .test_torch_march import _assert_march_bars
-from .torch_helpers import (CPU, many_objects_scene, mixed_analytic_scene,
-                            nn, random_rays, tt)
+from .torch_helpers import (CPU, bunny_beside_shapes, many_objects_scene,
+                            mixed_analytic_scene, nn, random_rays, tt)
 
 F32 = torch.float32
 
@@ -244,24 +244,37 @@ def _non_finite(p):
     return p
 
 
-@pytest.mark.parametrize("case", sorted(SCENES))
+# the non-finite points' cases: the analytic scenes, and the bunny beside
+# every analytic shape (K1c and K1d's ``nearest_non_finite``)
+NON_FINITE_SCENES = {**SCENES,
+                     "bunny_beside_shapes": lambda: bunny_beside_shapes(CPU)}
+
+
+@pytest.mark.parametrize("case", sorted(NON_FINITE_SCENES))
 def test_non_finite_points_reach_spheres_only(case):
     """Where a point has a NaN or an infinite coordinate, the plain
     version's local coordinates are each NaN or infinite (0 * inf and
     m * NaN in the matrix products), so every SDF but the sphere's is NaN
     or infinite; the sphere's is -sx where a coordinate is NaN (its
-    ``safe_norm`` maps NaN to 0). ``fold_non_finite`` rests on this."""
-    scene = SCENES[case]()
+    ``safe_norm`` maps NaN to 0). The bunny's, in K1c's order and in the
+    matmul form, is never under 1e30 either: a NaN point passes the support
+    test into the MLP, which gives NaN. ``fold_non_finite`` (K1a, K1b) and
+    ``nearest_non_finite`` (K1c, K1d) rest on this."""
+    scene = NON_FINITE_SCENES[case]()
     p = _non_finite(_points(scene, n=300, seed=2))
-    d = tscene.all_distances(scene, p).abs()
-    for i, t in enumerate(scene.shape_types):
-        if t == SHAPE.SPHERE:
-            ok = (d[:, i] == scene.scale[i, 0].abs()) | ~(d[:, i] < 1e30)
-        elif t == SHAPE.NONE:
-            ok = d[:, i] == 1e3  # never under MAX_DIS
-        else:
-            ok = ~(d[:, i] < 1e30)
-        assert bool(ok.all()), (case, i, t)
+    for kernel_order in (False, True):
+        d = tscene.all_distances(scene, p, kernel_order).abs()
+        for i, t in enumerate(scene.shape_types):
+            if t == SHAPE.SPHERE:
+                ok = (d[:, i] == scene.scale[i, 0].abs()) | ~(d[:, i] < 1e30)
+            elif t == SHAPE.NONE:
+                ok = d[:, i] == 1e3  # never under MAX_DIS
+            else:
+                ok = ~(d[:, i] < 1e30)
+            assert bool(ok.all()), (case, i, t, kernel_order)
+    if case == "bunny_beside_shapes":
+        assert SHAPE.BUNNY in scene.shape_types
+        assert bool((d[:, 0] == scene.scale[0, 0]).any())
 
 
 def _group_fold(scene, p):

@@ -5,7 +5,8 @@
 * the ``wavefront_cornell_full`` golden scores >= 35 dB;
 * the split march estimates the same image as the unsplit one;
 * ``convert`` round-trips a JAX ``FrameState``;
-* importing the port loads neither jax nor flax.
+* importing the port, its offline app included, loads neither jax nor
+  flax.
 """
 import os
 import subprocess
@@ -156,6 +157,8 @@ def test_import_loads_no_jax():
         "import raytracingpbr_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import raytracingpbr_tpu_torch.apps.offline\n"
+        "assert 'raytracingpbr_tpu_torch.apps.offline' in sys.modules\n"
         "bad = [m for m in ('jax', 'flax') if m in sys.modules]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(REPO))

@@ -97,3 +97,34 @@ def many_objects_scene(device, n=128, seed=0):
         objs.append(ObjectSpec(shapes[k % 4], tuple(rng.uniform(-1, 1, 3)),
                                rot, tuple(rng.uniform(0.05, 0.15, 3))))
     return make_scene(objs, box_round=0.01, device=device)
+
+
+def bunny_beside_shapes(device):
+    """The bunny (last, as ``make_scene`` sorts by shape type) beside a
+    sphere, a box, a cylinder and a cone."""
+    from raytracingpbr_tpu_torch.ops.scene import ObjectSpec, make_scene
+    from raytracingpbr_tpu_torch.ops.sdf import SHAPE as S
+    return make_scene([
+        ObjectSpec(S.BUNNY, (0, 0, 0), (-90, 0, 0), (1, 1, 1)),
+        ObjectSpec(S.SPHERE, (0.9, 0.2, 0.0), (0, 0, 0), (0.3,) * 3),
+        ObjectSpec(S.BOX, (-0.9, -0.3, 0.2), (10, 30, 0), (0.25, 0.2, 0.3)),
+        ObjectSpec(S.CYLINDER, (0.0, -0.9, 0.3), (0, 0, 90),
+                   (0.2, 0.3, 0.2)),
+        ObjectSpec(S.CONE, (0.2, 0.9, -0.3), (17, 35, -20),
+                   (0.8, 0.6, 0.5))], device=device)
+
+
+def golden_psnr(name: str) -> float:
+    """The port's render of golden ``name`` (``models/goldens``, on the
+    CPU) scored against ``assets/goldens/<name>.png``, in dB."""
+    import os
+
+    from raytracingpbr_tpu_torch.io.image import read_png
+    from raytracingpbr_tpu_torch.models.goldens import render_golden
+    from raytracingpbr_tpu_torch.utils.metrics import psnr
+    img = render_golden(name, CPU)
+    gold = read_png(os.path.join(os.path.dirname(__file__), "..", "assets",
+                                 "goldens", f"{name}.png"))[..., :3]
+    got = (np.clip(nn(img), 0, 1) * 255 + 0.5).astype(np.uint8)
+    assert got.shape == gold.shape
+    return psnr(got, gold)

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Times the bunny march kernels K1c and K1d of this tree (the persistent
 lane pool, ``raytracingpbr_tpu_torch/csrc/march_pool.cuh``) against those of
-the commit before the pool, in turns on the same inputs on one card.
+another commit, in turns on the same inputs on one card.
 
     PYTHONPATH=. python3 tools/ab_pool_march.py PREV_DIR
 
-PREV_DIR holds an unpacked ``git archive 78e40c0``: the last commit whose
-K1c runs a thread a lane and whose K1d runs a warp in lock step. Put it in a
-directory that ``.gitignore`` lists, such as ``build/prev``. Its
-``csrc/march.cu`` and ``csrc/march_mxu.cu`` are built with this tree's nvcc
-flags and called through that commit's C entry: ``rt_march`` without the
-pool's ``next_lane`` and ``counts``. A tree whose entry has other arguments
-is refused. Both trees march on this tree's packs of the scene, whose
-layout that commit shares.
+PREV_DIR holds an unpacked ``git archive`` of the other commit, in a
+directory that ``.gitignore`` lists, such as ``build/prev``. Two kinds of
+tree are taken, by the C entry of their ``rt_march``:
+- the commit before the pool (``78e40c0``: K1c a thread a lane, K1d a warp
+  in lock step), whose entry has no ``next_lane`` and ``counts``;
+- a commit with the pool's entry (an earlier pool, such as the parent of a
+  change to ``march_pool.cuh``), called as this tree's wrapper calls it.
+A tree with another entry is refused. Its ``csrc/march.cu`` and
+``csrc/march_mxu.cu`` are built with this tree's nvcc flags, and both trees
+march on this tree's packs of the scene, whose layout those commits share.
+``-Xptxas -v``'s registers, stack frame and spills of the bunny paths'
+pool instance (CONSTANT omega, RELATIVE hit, no bound) are printed for
+both trees.
 
 Inputs, made as ``chip_smoke.py`` makes them:
 - the four budget-32 march calls of one frame of the bunny glass path at
@@ -54,19 +59,40 @@ PREV_ENTRY = re.compile(r"int\s*\*\s*done_out,\s*int\s+block,\s*\\?\s*"
                         r"void\s*\*\s*stream")
 
 
+def pool_ptxas(report: str) -> str:
+    """Registers, stack frame and spills of the bunny paths' pool instance
+    (``pool_kernel<0, 1, false, ...>``) and of any function it calls out
+    of line, from a library's ``-Xptxas -v`` report."""
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+        keep = name and ("pool_kernelILi0ELi1ELb0E" in name
+                         or "nearest_non_finite" in name)
+        if keep and ("stack frame" in line or "Used" in line):
+            out.append(f"{name[:48]}: {' '.join(line.split())}")
+    return "; ".join(dict.fromkeys(out)) or "no pool instance found"
+
+
 class PrevKernels:
-    """K1c and K1d of the commit before the pool, built into
-    ``build/.../prev``. For timing beside this tree's only: no render path
-    calls them and they are counted nowhere."""
+    """K1c and K1d of another commit, built into ``build/.../prev``. For
+    timing beside this tree's only: no render path calls them and they are
+    counted nowhere."""
 
     SOURCES = {"k1c": "march", "k1d": "march_mxu"}
 
     def __init__(self, root):
         self.csrc = Path(root) / CSRC
         entry = (self.csrc / "march_common.cuh").read_text()
-        if "next_lane" in entry or not PREV_ENTRY.search(entry):
-            raise SystemExit(f"{self.csrc}: its rt_march is not the entry "
-                             f"of the commit before the pool")
+        self.pooled = "int *next_lane, unsigned long long *counts" in (
+            " ".join(entry.split()))
+        if not (self.pooled or ("next_lane" not in entry
+                                and PREV_ENTRY.search(entry))):
+            raise SystemExit(f"{self.csrc}: its rt_march is neither the "
+                             f"pool's entry nor that of the commit before "
+                             f"the pool")
         self.out = build.BUILD_DIR / "prev"
         self.jobs, self.libs = {}, {}
 
@@ -90,12 +116,18 @@ class PrevKernels:
                 raise RuntimeError(f"prev {name}.cu: nvcc failed ({rc}):\n"
                                    + report)
             cdll = ctypes.CDLL(str(lib))
-            cdll.rt_march.argtypes = ([p, p, p, i, f, p, p, p, p, p, p, p, f,
-                                       f, f, f, f, f, i, i, i, i, i]
-                                      + [p] * 8 + [i, p])
-            cdll.rt_march.restype = i
+            if self.pooled:
+                march_kernel.declare(cdll, name)
+            else:
+                cdll.rt_march.argtypes = ([p, p, p, i, f, p, p, p, p, p, p,
+                                           p, f, f, f, f, f, f, i, i, i, i,
+                                           i] + [p] * 8 + [i, p])
+                cdll.rt_march.restype = i
             self.libs[name] = cdll
-            log(f"[ab] ptxas prev {name}.cu: {ptxas_summary(report)}")
+            log(f"[ab] ptxas prev {name}.cu: {ptxas_summary(report)}; "
+                f"{pool_ptxas(report)}")
+            log(f"[ab] ptxas this {name}.cu: "
+                f"{pool_ptxas(build.ptxas_report(name))}")
 
     def march(self, scene, o, d, cfg, active=None, init=None):
         kind = march_kernel.variant(scene, cfg)
@@ -109,6 +141,9 @@ class PrevKernels:
         hit = torch.empty((n,), dtype=torch.bool, device=o.device)
         ptr = lambda x: None if x is None else x.data_ptr()
         inits = (None,) * 4 if init is None else init
+        next_lane = torch.zeros((1,), **i32) if self.pooled else None
+        pool = ((next_lane.data_ptr(), None, march_kernel.POOL_SLOTS)
+                if self.pooled else (march_kernel.BLOCK,))
         rc = lib.rt_march(
             ptr(params), ptr(scene.type_ids), ptr(pack), scene.num_objects,
             scene.box_round, ptr(o), ptr(d), ptr(active),
@@ -117,7 +152,7 @@ class PrevKernels:
             march_kernel._POLICY[cfg.omega_policy],
             march_kernel._CRIT[cfg.hit_criterion], int(bound2 is not None),
             cfg.max_raymarch, n, ptr(t), ptr(idx), ptr(hit), ptr(fin),
-            ptr(w), ptr(s), ptr(dd), ptr(done), march_kernel.BLOCK,
+            ptr(w), ptr(s), ptr(dd), ptr(done), *pool,
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"prev {kind} launch failed: CUDA error {rc}")
@@ -157,7 +192,7 @@ def ab(label, scene, calls, mxu, prev):
             lambda: march_kernel.march_resumable_cuda(
                 scene, o, d, cfg, active=act, init=init),
             lambda: prev.march(scene, o, d, cfg, act, init), REPS, REPS)
-        log(f"[ab] {label} call {j}: pool {ms:.4f} ms, prev {prev_ms:.4f} "
+        log(f"[ab] {label} call {j}: this {ms:.4f} ms, prev {prev_ms:.4f} "
             f"ms (n p p n: {', '.join(f'{v:.4f}' for v in meds)}); "
             f"{o.shape[0]} lanes; outputs "
             f"{'bit-equal' if not apart else f'{apart} values apart'}")
@@ -165,7 +200,7 @@ def ab(label, scene, calls, mxu, prev):
         tot["prev_ms"] += prev_ms
         tot["values_apart"] += apart
     change = 100 * (tot["ms"] / tot["prev_ms"] - 1)
-    log(f"[ab] {label}, sum of {len(calls)}: pool {tot['ms']:.4f} ms, prev "
+    log(f"[ab] {label}, sum of {len(calls)}: this {tot['ms']:.4f} ms, prev "
         f"{tot['prev_ms']:.4f} ms ({change:+.1f}%)")
     return tot
 
