@@ -119,13 +119,40 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     after 16 steps, where its timed frames start): lane-trips needed and
     executed, MLP evaluations needed and run, flops, achieved GFLOP/s,
     the share of K2's roof and of 67 TFLOP/s, and the bound.
+7a. environment sampling (NEE/MIS): the alias tables of the engine, tokyo
+    and glass skies and of ``bench.py:119-127``'s 64x32 sun sky, their
+    sizes and build times.
+7b. the engine (768x432) and tokyo (2880x1620) frames of 3f with
+    ``env_sampling`` off and on, in turns off, on, on, off, on the same
+    frame protocol (K1b twice a step with NEE: the bounce and the shadow
+    rays); one profiled NEE frame each (device busy, idle share, top
+    kernels); one more NEE frame each whose shadow calls are recorded.
+7c. the megakernel with NEE on ``bench.py:88-108``'s pass protocol: the
+    Cornell full box at 480x480 (``max_raytrace`` 128) under the sun sky
+    (K1a bounces, K1b shadow rays); the glass bunny at 1920x1080 with K1c
+    and K1d in turns off, on, on, off; ms/pass, Msamples/s, bounces, host
+    syncs; one K1c glass pass whose shadow calls are recorded.
+7d. the recorded shadow-march calls (engine and tokyo: four each; glass:
+    bounces 0, 1 and the last with a live lane): K1b and K1c bit-equal to
+    the plain march, K1d within the march bar; time, lane-trips, bound and
+    share, launches a frame or a pass.
+7e. ``tests/test_nee.py``'s statistical bars on the card at 64x64, 8 seeds
+    x 8 spp: the sun-lit and glossy scenes' means within rel 0.25 and NEE
+    variance below half the plain one; specular MIS below 0.6x the
+    variance of diffuse-only NEE.
+7f. the progressive daemon in a subprocess, ``--scene demo --nee``,
+    twice (the second run resumes): its checkpoint equals a straight
+    render of as many frames bit for bit; 6 frames straight equal 3, a
+    checkpoint, a load and 3 more in ``accum`` and ``pixels``.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON record (K1a and K1b with their mean
 call inside their frames, a call alone and back to back; K1c and K1d with
 theirs; K1a, K1c and K1d with their launches a megakernel pass and their
-3j calls' time, bound and share, K1b with its launches in the goldens),
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+3j calls' time, bound and share, K1b with its launches in the goldens;
+K1b, K1c and K1d with their 7d shadow calls' time, bound, share and
+launches), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 Imports no jax.
 """
 import json
@@ -140,18 +167,22 @@ import warnings
 import numpy as np
 import torch
 
+from raytracingpbr_tpu_torch import (HitCriterion, OmegaPolicy, RenderConfig,
+                                     Roulette, make_camera)
+from raytracingpbr_tpu_torch.apps import progressive
 from raytracingpbr_tpu_torch.core import rng
 from raytracingpbr_tpu_torch.core.types import make_frame_state
+from raytracingpbr_tpu_torch.io import checkpoint as ckpt
 from raytracingpbr_tpu_torch.io.image import read_png
 from raytracingpbr_tpu_torch.kernels import build, fma_kernel, march_kernel
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.models.goldens import GOLDENS, render_golden
-from raytracingpbr_tpu_torch.ops import camera, integrator, march
+from raytracingpbr_tpu_torch.ops import camera, ibl, integrator, march
 from raytracingpbr_tpu_torch.ops import scene as scenelib
 from raytracingpbr_tpu_torch.ops.integrator import (render_frame,
                                                     render_image,
                                                     render_image_progressive)
-from raytracingpbr_tpu_torch.ops.sdf import BunnyMLP, bunny_mlp_eval
+from raytracingpbr_tpu_torch.ops.sdf import SHAPE, BunnyMLP, bunny_mlp_eval
 from raytracingpbr_tpu_torch.utils import speedlight
 from raytracingpbr_tpu_torch.utils.metrics import psnr
 
@@ -182,6 +213,12 @@ MEGA_PASSES = 6
 GLASS_PASSES = 1
 GLASS_SUBSET = 8
 GLASS_CALLS = f"glass megakernel, every {GLASS_SUBSET}th lane"
+# NEE statistics (7e): tests/test_nee.py's scenes at this size, seeds and
+# samples per pixel; the progressive daemon's two runs (7f)
+NEE_STATS_RES = (64, 64)
+NEE_SEEDS = 8
+NEE_SPP = 8
+PROGRESSIVE_MINUTES = 0.05
 
 
 def log(*a):
@@ -684,11 +721,12 @@ def check_frame(px, c0, c1):
         raise AssertionError("pixels not finite in [0, 1]")
 
 
-def run_frames(scene, env, cam, cfg, kind, label):
+def run_frames(scene, env, cam, cfg, kind, label, per_step=1):
     """bench.py's protocol from a fresh state: 1 + 3 warm-up frames, 10
-    timed, ending in a sync; ``kind``'s kernel must launch once a step and
-    no other march kernel at all. Returns (ms/frame, Msamples/s,
-    launches, state)."""
+    timed, ending in a sync; ``kind``'s kernel must launch ``per_step``
+    times a step (2 with NEE: the bounce and the shadow rays) and no other
+    march kernel at all. Returns (ms/frame, Msamples/s, launches,
+    state)."""
     state = make_frame_state(cfg.num_pixels, device=scene.device)
     steps = cfg.samples_per_frame * cfg.samples_per_pixel
     march_kernel.reset_launches()
@@ -707,16 +745,25 @@ def run_frames(scene, env, cam, cfg, kind, label):
     dt = time.perf_counter() - t0
     c1 = float(state.accum[:, 3].sum())
     launches = dict(march_kernel.LAUNCHES)
+    bound = dict(march_kernel.BOUND_LAUNCHES)
     frames = 4 + TIMED_FRAMES
-    expect = {k: steps * frames if k == kind else 0 for k in launches}
+    expect = {k: per_step * steps * frames if k == kind else 0
+              for k in launches}
     if launches != expect:
-        raise AssertionError(f"{label}: expected {steps} {kind} launches per "
-                             f"frame, got {launches} over {frames} frames")
+        raise AssertionError(f"{label}: expected {per_step * steps} {kind} "
+                             f"launches per frame, got {launches} over "
+                             f"{frames} frames")
+    # with NEE (per_step 2) one launch a step is the shadow rays' bound one
+    expect = {k: (per_step - 1) * steps * frames if k == kind else 0
+              for k in bound}
+    if bound != expect:
+        raise AssertionError(f"{label}: expected {expect} escape-bound "
+                             f"launches, got {bound}")
     check_frame(px, c0, c1)
     ms, msps = dt / TIMED_FRAMES * 1e3, (c1 - c0) / dt / 1e6
     log(f"{label}: first frame {first:.2f} s; {ms:.3f} ms/frame, "
         f"{msps:.4f} Msamples/s, {launches[kind]} {kind} launches in "
-        f"{frames} frames")
+        f"{frames} frames, {bound[kind]} of them escape-bound")
     return ms, msps, launches[kind], state
 
 
@@ -814,11 +861,11 @@ def device_profile(fn, frames):
                                  for n, us in top]
 
 
-def capture_frame(scene, env, cam, cfg, state):
+def capture_frame(scene, env, cam, cfg, state, per_step=1):
     """One more frame from ``state`` with the march calls' inputs recorded
     (cloned): a wrapper around ``march_kernel.march_resumable_cuda`` for
-    this frame alone. Returns ([(origin, direction, active, init, cfg)],
-    the state after the frame)."""
+    this frame alone, ``per_step`` calls a step. Returns ([(origin,
+    direction, active, init, cfg)], the state after the frame)."""
     calls, real = [], march_kernel.march_resumable_cuda
 
     def record(sc, o, d, c, active=None, init=None, **kw):
@@ -833,7 +880,7 @@ def capture_frame(scene, env, cam, cfg, state):
     finally:
         march_kernel.march_resumable_cuda = real
     steps = cfg.samples_per_frame * cfg.samples_per_pixel
-    if len(calls) != steps:
+    if len(calls) != per_step * steps:
         raise AssertionError(f"recorded {len(calls)} march calls in a frame "
                              f"of {steps} steps")
     return calls, state
@@ -1080,8 +1127,13 @@ def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
     tonemapped=False)`` at sample_offset ``first - 1`` as warm-up (unless
     ``warm`` is False), then ``passes`` timed passes at sample offsets
     ``first``, ``first + 1``, ... ending in a sync. Only ``kind``'s march
-    kernel may launch, one launch a bounce. Returns ms/pass, Msamples/s,
-    bounces the loop ran a pass, peak GiB and the last image."""
+    kernel may launch, one launch a bounce (``kind`` may be a tuple: the
+    bounce's kernel first, then the shadow rays', each of which must
+    launch); the shadow rays' launches are the escape-bound ones, which
+    run exactly when ``cfg.env_sampling`` is on. Returns ms/pass,
+    Msamples/s, bounces the loop ran a pass, the launches, shadow launches
+    a pass, peak GiB and the last image."""
+    kinds = (kind,) if isinstance(kind, str) else tuple(kind)
     run = lambda s: render_image(scene, env, cam, cfg, spp=1,
                                  sample_offset=s, tonemapped=False, **kw)
     t0 = time.perf_counter()
@@ -1097,18 +1149,31 @@ def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / passes
     launches = dict(march_kernel.LAUNCHES)
-    if not launches[kind] or any(v for k, v in launches.items() if k != kind):
-        raise AssertionError(f"{label}: expected {kind} launches alone, got "
-                             f"{launches}")
+    bound = dict(march_kernel.BOUND_LAUNCHES)
+    if not all(launches[k] for k in kinds) or any(
+            v for k, v in launches.items() if k not in kinds):
+        raise AssertionError(f"{label}: expected {kinds} launches alone, "
+                             f"got {launches}")
+    shadow = sum(bound.values())
+    if bool(shadow) != cfg.env_sampling:
+        raise AssertionError(f"{label}: escape-bound launches {bound} with "
+                             f"env_sampling={cfg.env_sampling}")
     if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0):
         raise AssertionError(f"{label}: the image is not finite and positive")
+    # a bounce launches kinds[0] once; the shadow rays' launches are the
+    # escape-bound ones
     out = dict(ms=dt * 1e3, msps=cfg.num_pixels / dt / 1e6,
-               bounces=launches[kind] / passes, launches=launches[kind],
+               bounces=(launches[kinds[0]] - bound[kinds[0]]) / passes,
+               launches=launches[kinds[0]],
+               all_launches={k: launches[k] for k in kinds},
+               shadow_per_pass=shadow / passes,
                mem=torch.cuda.max_memory_allocated() / 2**30, img=img)
     log(f"{label}: warm-up pass {warm:.2f} s; {out['ms']:.3f} ms/pass, "
         f"{out['msps']:.4f} Msamples/s over {passes} passes; the loop ran "
-        f"{out['bounces']:.2f} bounces a pass ({kind.upper()} launches a "
-        f"pass); peak device memory {out['mem']:.2f} GiB")
+        f"{out['bounces']:.2f} bounces a pass; launches "
+        f"{out['all_launches']}, escape-bound (shadow) "
+        f"{out['shadow_per_pass']:.2f} a pass; peak device memory "
+        f"{out['mem']:.2f} GiB")
     if out["ms"] > 60e3:
         log(f"{label}: one pass took {out['ms'] / 1e3:.1f} s (over 60 s)")
     return out
@@ -1395,6 +1460,390 @@ def phase_utilization(dev, states):
     return launches["k2"], roof, bounds
 
 
+# --- environment sampling (NEE / MIS) and the progressive daemon -------------
+
+def sun_sky(dev):
+    """``bench.py:119-127``'s sun sky for the NEE Cornell megakernel: 64x32
+    texels of 0.05 with a 4x4 sun of 25."""
+    img = np.full((64, 32, 3), 0.05, np.float32)
+    img[40:44, 24:28] = 25.0
+    return ibl.hdr_environment(img, prebake=False, device=dev)
+
+
+def phase_alias_tables(dev):
+    """7a: the alias tables of the engine, tokyo and glass skies and of
+    the bench's sun sky, with their sizes and build times (Vose on the
+    host, then copied to the card)."""
+    out = {}
+    for label, env in (("engine", demo.engine_environment(device=dev)),
+                       ("tokyo", demo.tokyo_environment(device=dev)),
+                       ("glass", bunny.glass_environment(device=dev)),
+                       ("sun", sun_sky(dev))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        baked = ibl.with_env_sampler(env)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        w, h = env.image.shape[:2]
+        n = w * h
+        if not (baked.s_prob.device == env.image.device
+                and bool((baked.s_prob >= 0).all())
+                and bool((baked.s_prob <= 1).all())
+                and int(baked.s_alias.min()) >= 0
+                and int(baked.s_alias.max()) < n
+                and bool(torch.isfinite(baked.s_pdf).all())):
+            raise AssertionError(f"{label}: the alias table is malformed")
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (baked.s_prob, baked.s_alias, baked.s_pdf))
+        log(f"[7a] {label} sky {w}x{h}: {n} texels, alias table "
+            f"(prob, alias, pdf) {nbytes} bytes on the card, built in "
+            f"{ms:.2f} ms")
+        out[label] = baked
+    return out
+
+
+def is_shadow(c, cfg) -> bool:
+    """A recorded march call is a shadow march: the escape bound is on
+    where the path's own configuration has it off (no model config sets
+    it)."""
+    return c.escape_bound and not cfg.escape_bound
+
+
+def phase_nee_wavefront(dev, tables):
+    """7b: the engine (768x432) and tokyo (2880x1620) frames with
+    ``env_sampling`` off and on, in turns off, on, on, off, on PERF.md
+    section 2's protocol; with NEE K1b launches twice a step (the bounce
+    and the shadow rays). One profiled NEE frame each, then one more NEE
+    frame whose march calls are recorded (the shadow calls go to 7d).
+    Returns ({label: {nee: [(ms, Msamples/s, launches, GiB, escape-bound
+    launches a frame)]}}, {label: (scene, shadow calls)}, {label:
+    profile})."""
+    out, shadows, profiles = {}, {}, {}
+    for label, (scene, env, cam, cfg) in k1b_paths(dev).items():
+        nee_env = tables[label.split()[0]]
+        ncfg = cfg.replace(env_sampling=True)
+        runs = {False: [], True: []}
+        for nee in (False, True, True, False):
+            torch.cuda.reset_peak_memory_stats()
+            ms, msps, n, state = run_frames(
+                scene, nee_env if nee else env, cam, ncfg if nee else cfg,
+                "k1b", f"[7b] {label} env_sampling={nee}",
+                per_step=2 if nee else 1)
+            runs[nee].append((ms, msps, n,
+                              torch.cuda.max_memory_allocated() / 2**30,
+                              march_kernel.BOUND_LAUNCHES["k1b"]
+                              / (4 + TIMED_FRAMES)))
+            if nee:
+                nee_state = state
+        st = [nee_state]
+
+        def frame():
+            _, st[0] = render_frame(scene, nee_env, cam, st[0], ncfg)
+        mean = lambda nee, j: statistics.mean(v[j] for v in runs[nee])
+        prof = device_profile(frame, 2)
+        desc = "device busy and idle not measured (no device activity seen)"
+        if prof is not None:
+            busy, top = prof
+            desc = (f"one profiled NEE frame: device busy {busy:.3f} ms, idle "
+                    f"share {max(0.0, 1 - busy / mean(True, 0)) * 100:.1f}% "
+                    f"of {mean(True, 0):.3f} ms/frame; most device ms/frame: "
+                    + "; ".join(f"{k} {v:.3f}" for k, v in top))
+        profiles[label] = prof
+        log(f"[7b] {label}: NEE off {mean(False, 0):.3f} ms/frame, "
+            f"{mean(False, 1):.4f} Msamples/s; NEE on {mean(True, 0):.3f} "
+            f"ms/frame, {mean(True, 1):.4f} Msamples/s (means of two; "
+            f"{mean(True, 0) / mean(False, 0):.3f}x the frame time); peak "
+            f"{mean(True, 3):.2f} GiB with NEE; {desc}")
+        calls, _ = capture_frame(scene, nee_env, cam, ncfg, st[0],
+                                 per_step=2)
+        shadow = [c for c in calls if is_shadow(c[4], ncfg)]
+        if len(shadow) != runs[True][0][4]:
+            raise AssertionError(f"{label}: {len(shadow)} shadow calls "
+                                 f"recorded, {runs[True][0][4]} launched a "
+                                 f"frame in the timed runs")
+        out[label] = runs
+        shadows[f"{label} NEE shadow"] = (scene, shadow)
+    return out, shadows, profiles
+
+
+def record_shadow_pass(scene, env, cam, cfg, **kw):
+    """One megakernel pass (sample 0) with its shadow-march calls recorded:
+    bounce 0, bounce 1 and the last with a live lane, each cloned. Returns
+    (calls, names)."""
+    real = march_kernel.march_resumable_cuda
+    calls = {}
+
+    def record(sc, o, d, c, active=None, init=None, **k):
+        if is_shadow(c, cfg):
+            b = record.bounce
+            record.bounce += 1
+            if b < 2 or bool(active.any()):
+                calls[min(b, 2)] = (b, (o.clone(), d.clone(), active.clone(),
+                                        init, c))
+        return real(sc, o, d, c, active=active, init=init, **k)
+    record.bounce = 0
+    march_kernel.march_resumable_cuda = record
+    try:
+        render_image(scene, env, cam, cfg, spp=1, tonemapped=False, **kw)
+    finally:
+        march_kernel.march_resumable_cuda = real
+    torch.cuda.synchronize()
+    names = [f"bounce {calls[j][0]}" for j in sorted(calls)]
+    return [calls[j][1] for j in sorted(calls)], names
+
+
+def phase_nee_megakernel(dev, tables):
+    """7c: the megakernel with NEE on ``bench.py:88-108``'s pass protocol:
+    the Cornell full box at 480x480 (``max_raytrace`` 128) under the
+    bench's sun sky, K1a for the bounces and K1b for the shadow rays (the
+    forward half of ``bench.py``'s replay+NEE extra); the glass bunny at
+    1920x1080 under its HDR sky with K1c and K1d in turns off, on, on,
+    off. Host syncs a pass; then one K1c glass pass whose shadow calls are
+    recorded (7d). Returns (Cornell, {mxu: [runs]}, the glass record)."""
+    cfg = cornell.full_config().replace(max_raytrace=128, env_sampling=True)
+    scene, cam = cornell.full_scene(dev), cornell.full_camera(dev)
+    env = tables["sun"]
+    corn = megakernel_passes("[7c] Cornell full NEE megakernel 480x480, "
+                             "sun sky", scene, env, cam, cfg,
+                             ("k1a", "k1b"), MEGA_PASSES)
+    corn["syncs"] = host_syncs(lambda: render_image(
+        scene, env, cam, cfg, spp=1, sample_offset=7, tonemapped=False))
+    log(f"[7c] Cornell NEE: host syncs a pass {corn['syncs']}")
+    corn.pop("img")
+
+    gcfg = bunny.glass_config().replace(env_sampling=True)
+    glass = bunny.animated_scene(bunny.glass_scene(dev),
+                                 torch.tensor(12.0, device=dev))
+    genv = tables["glass"]
+    gcam = bunny.camera(gcfg.width / gcfg.height, dev)
+    runs = {False: [], True: []}
+    for j, mxu in enumerate((False, True, True, False)):
+        kind = "k1d" if mxu else "k1c"
+        r = megakernel_passes(
+            f"[7c] glass NEE megakernel 1920x1080 bunny_mxu={mxu}", glass,
+            genv, gcam, gcfg.replace(bunny_mxu=mxu), kind, GLASS_PASSES,
+            first=1 + 2 * j, warm=j < 2)
+        r.pop("img")
+        runs[mxu].append(r)
+    for mxu in (False, True):
+        runs[mxu][0]["syncs"] = host_syncs(lambda: render_image(
+            glass, genv, gcam, gcfg.replace(bunny_mxu=mxu), spp=1,
+            sample_offset=20, tonemapped=False))
+        log(f"[7c] glass NEE bunny_mxu={mxu}: "
+            f"{statistics.mean(v['ms'] for v in runs[mxu]):.3f} ms/pass, "
+            f"{statistics.mean(v['msps'] for v in runs[mxu]):.4f} Msamples/s"
+            f" (mean of two), host syncs a pass {runs[mxu][0]['syncs']}")
+    calls, names = record_shadow_pass(glass, genv, gcam, gcfg)
+    return corn, runs, (glass, calls, names)
+
+
+def phase_shadow_calls(frames, glass_rec, per_frame, per_pass):
+    """7d: the shadow-march calls of one NEE frame of engine and tokyo
+    (K1b, bit-equal, a call and back to back) and of one glass NEE pass
+    (K1c bit-equal, K1d within the march bar), each timed, with lane-trips
+    needed and executed, bound and share. ``per_frame`` and ``per_pass``:
+    the escape-bound launches that 7b's timed frames and 7c's timed passes
+    made. Returns (analytic sums, pooled sums)."""
+    ab = phase_in_frame_analytic(frames, tag="[7d]")
+    glass, calls, names = glass_rec
+    cd = pooled_calls(((f"glass NEE shadow, K1c", glass, calls, False),
+                       (f"glass NEE shadow, K1d", glass, calls, True)),
+                      tag="[7d]", names=names)
+    log("[7d] shadow (escape-bound) launches in the timed runs: "
+        + ", ".join(f"{k} {v:g} a frame" for k, v in per_frame.items())
+        + "".join(f"; glass NEE bunny_mxu={k} {v:g} a pass"
+                    for k, v in per_pass.items()))
+    return ab, cd
+
+
+def nee_test_scenes(dev):
+    """``tests/test_nee.py:27-55, 175-197``'s sun-lit and glossy scenes and
+    skies and its ``base_cfg`` at NEE_STATS_RES."""
+    img = np.full((32, 16, 3), 0.05, np.float32)
+    img[8:12, 11:15] = 25.0
+    front = np.full((32, 16, 3), 0.05, np.float32)
+    front[24:28, 11:15] = 25.0
+    sky = lambda a: ibl.hdr_environment(a, prebake=False, device=dev)
+    sun = scenelib.make_scene([
+        scenelib.ObjectSpec(SHAPE.SPHERE, position=(0, -101, 0),
+                            scale=(100,) * 3, albedo=(0.7, 0.7, 0.7),
+                            roughness=1.0),
+        scenelib.ObjectSpec(SHAPE.SPHERE, position=(0, 0, 0),
+                            scale=(1.0,) * 3, albedo=(0.6, 0.4, 0.3),
+                            roughness=1.0)], device=dev)
+    glossy = scenelib.make_scene([
+        scenelib.ObjectSpec(SHAPE.SPHERE, position=(0, -101, 0),
+                            scale=(100,) * 3, albedo=(0.7, 0.7, 0.7),
+                            roughness=0.8, metallic=1.0),
+        scenelib.ObjectSpec(SHAPE.SPHERE, position=(0, 0, 0),
+                            scale=(1.0,) * 3, albedo=(0.9, 0.9, 0.9),
+                            roughness=0.5, metallic=1.0)], device=dev)
+    cam = make_camera(lookfrom=(0, 1.0, 4.0), lookat=(0, 0, 0), vfov=40.0,
+                      aspect=1.0, aperture=0.0, focus=1.0, device=dev)
+    cfg = RenderConfig(resolution=NEE_STATS_RES, max_raymarch=48,
+                       max_raytrace=4, light_quality=1e9,
+                       roulette=Roulette.EXP, omega=1.0,
+                       omega_policy=OmegaPolicy.CONSTANT,
+                       hit_criterion=HitCriterion.ABSOLUTE,
+                       hit_precision=1e-4, march_t0=0.005, max_dis=300.0)
+    return (sun, sky(img)), (glossy, sky(front)), cam, cfg
+
+
+def phase_nee_statistics(dev):
+    """7e: ``tests/test_nee.py``'s statistical bars on the card at
+    NEE_STATS_RES over NEE_SEEDS seeds of NEE_SPP samples: the sun-lit and
+    the glossy scene, means within rel 0.25 and the NEE variance below half
+    the plain one (``:110-113``, ``:217-220``); specular MIS below 0.6x
+    the variance of diffuse-only NEE on the glossy scene (``:240``)."""
+    (sun, sun_env), (glossy, front_env), cam, cfg = nee_test_scenes(dev)
+
+    def seeds(scene, env, c):
+        return torch.stack([render_image(scene, env, cam, c.replace(seed=s),
+                                         spp=NEE_SPP, tonemapped=False)
+                            for s in range(NEE_SEEDS)])
+    march_kernel.reset_launches()
+    t0 = time.perf_counter()
+    out = {}
+    for label, scene, env, c in (("sun-lit", sun, sun_env, cfg),
+                                 ("glossy", glossy, front_env,
+                                  cfg.replace(max_raytrace=6))):
+        off = seeds(scene, env, c)
+        env_s = ibl.with_env_sampler(env)
+        on = seeds(scene, env_s, c.replace(env_sampling=True))
+        m_off, m_on = float(off.mean()), float(on.mean())
+        v_off = float(off.var(dim=0, unbiased=False).mean())
+        v_on = float(on.var(dim=0, unbiased=False).mean())
+        ok = abs(m_on - m_off) <= 0.25 * abs(m_off) and v_on < 0.5 * v_off
+        log(f"[7e] {label}: mean NEE {m_on:.6f} vs plain {m_off:.6f} (rel "
+            f"{abs(m_on / m_off - 1):.4f}, bar 0.25); variance ratio "
+            f"{v_on / v_off:.4f} (bar < 0.5)")
+        if not ok:
+            raise AssertionError(f"[7e] {label}: NEE statistics off the bar")
+        out[label] = (m_on / m_off, v_on / v_off)
+        if label == "glossy":
+            no = seeds(scene, env_s, c.replace(env_sampling=True,
+                                               mis_specular=False))
+            v_no = float(no.var(dim=0, unbiased=False).mean())
+            log(f"[7e] glossy: MIS variance {v_on:.6e} vs diffuse-only NEE "
+                f"{v_no:.6e}, ratio {v_on / v_no:.4f} (bar < 0.6)")
+            if not v_on < 0.6 * v_no:
+                raise AssertionError("[7e] specular MIS does not beat "
+                                     "diffuse-only NEE")
+            out["mis"] = v_on / v_no
+    launches = dict(march_kernel.LAUNCHES)
+    if not (launches["k1a"] and launches["k1b"]):
+        raise AssertionError(f"[7e] expected K1a and K1b, got {launches}")
+    log(f"[7e] {NEE_STATS_RES[0]}x{NEE_STATS_RES[1]}, {NEE_SEEDS} seeds x "
+        f"{NEE_SPP} spp each, in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    return out
+
+
+def phase_progressive(dev):
+    """7f: the progressive daemon as a user runs it, ``--scene demo --nee``
+    (the engine scene at 768x432 under its HDR sky), twice in a subprocess:
+    the second run resumes from the first's checkpoint. The final
+    checkpoint must equal, bit for bit, a straight render of as many frames
+    in this process; and here 6 frames straight must equal 3 frames, a
+    checkpoint, a load and 3 more (``accum`` and ``pixels``)."""
+    out = os.path.join(REPO, "build", "progressive_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "raytracingpbr_tpu_torch.apps.progressive",
+           "--scene", "demo", "--nee", "--minutes", str(PROGRESSIVE_MINUTES),
+           "--out", out, "--metrics", os.path.join(out, "metrics.jsonl")]
+    t0 = time.perf_counter()
+    frames = []
+    for run in range(2):
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"progressive app: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        st, meta = ckpt.load(os.path.join(out, "state.npz"), device=dev)
+        if run and f"resumed from frame {frames[0]}" not in proc.stdout:
+            raise AssertionError(f"the second run did not resume: "
+                                 f"{proc.stdout[-500:]}")
+        frames.append(int(st.frame))
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rec = [json.loads(line) for line in f]
+    scene, env, cam, cfg, exposure = progressive.scene_setup(
+        "demo", nee=True, device=dev)
+    march_kernel.reset_launches()
+
+    def straight(state, n):
+        px = None
+        for _ in range(n):
+            px, state = render_frame(scene, env, cam, state, cfg,
+                                     exposure=exposure)
+        return px, state
+    fresh = lambda: make_frame_state(cfg.num_pixels, device=dev)
+    px, ref = straight(fresh(), frames[1])
+    for k in ("accum", "pixels", "sky_w", "respawn", "march_state",
+              "march_cum", "noise", "diff_accum", "hit_t"):
+        if not torch.equal(getattr(ref, k), getattr(st, k)):
+            raise AssertionError(f"the app's two runs and a straight render "
+                                 f"of {frames[1]} frames differ in {k}")
+    if not torch.equal(ref.rays.color, st.rays.color):
+        raise AssertionError("the app's rays differ from a straight render")
+    launches = dict(march_kernel.LAUNCHES)
+    if launches != {"k1a": 0, "k1b": 2 * frames[1], "k1c": 0, "k1d": 0}:
+        raise AssertionError(f"[7f] launches {launches}")
+    px6, six = straight(fresh(), 6)
+    _, three = straight(fresh(), 3)
+    path = os.path.join(out, "mid.npz")
+    ckpt.save(path, three)
+    back, _ = ckpt.load(path, device=dev)
+    px_b, back = straight(back, 3)
+    if not (torch.equal(six.accum, back.accum)
+            and torch.equal(six.pixels, back.pixels)
+            and torch.equal(px6, px_b)):
+        raise AssertionError("resume after 3 of 6 frames is not bit-exact")
+    log(f"[7f] progressive --scene demo --nee --minutes "
+        f"{PROGRESSIVE_MINUTES}, twice: rc 0, frames {frames[0]} then "
+        f"{frames[1]} (resumed), {secs:.1f} s of subprocess; last frame "
+        f"{rec[-1]['dt'] * 1e3:.1f} ms, {rec[-1]['mean_spp']:.2f} spp mean; "
+        f"the checkpoint equals a straight render of {frames[1]} frames bit "
+        f"for bit ({launches['k1b']} K1b launches); 6 frames straight equal "
+        f"3 + checkpoint + 3 in accum and pixels")
+    return frames, rec[-1]
+
+
+def nee_phases(dev):
+    """7a-7f. Returns what the summary and the kernels line read."""
+    tables = phase_alias_tables(dev)
+    wave, shadows, _ = phase_nee_wavefront(dev, tables)
+    corn, glass, glass_rec = phase_nee_megakernel(dev, tables)
+    per_frame = {f"{k} NEE shadow": statistics.mean(r[4] for r in v[True])
+                 for k, v in wave.items()}
+    per_pass = {mxu: statistics.mean(r["shadow_per_pass"] for r in v)
+                for mxu, v in glass.items()}
+    ab, cd = phase_shadow_calls(shadows, glass_rec, per_frame, per_pass)
+    del shadows, glass_rec
+    stats = phase_nee_statistics(dev)
+    frames, last = phase_progressive(dev)
+    mean = lambda runs, j: statistics.mean(v[j] for v in runs)
+    gms = lambda mxu: statistics.mean(v["ms"] for v in glass[mxu])
+    log("[7] summary: " + "; ".join(
+        f"{k} NEE off {mean(v[False], 0):.3f} / on {mean(v[True], 0):.3f} "
+        f"ms/frame ({mean(v[False], 1):.4f} / {mean(v[True], 1):.4f} "
+        f"Msamples/s), shadow calls {ab[k + ' NEE shadow']['device_ms']:.4f}"
+        f" ms a frame back to back, bound "
+        f"{ab[k + ' NEE shadow']['bound_ms']:.4f}" for k, v in wave.items())
+        + f"; Cornell NEE megakernel {corn['ms']:.3f} ms/pass "
+        f"({corn['msps']:.4f} Msamples/s, {corn['bounces']:.1f} bounces, "
+        f"{corn['syncs']} host syncs); glass NEE K1c {gms(False):.3f} / K1d "
+        f"{gms(True):.3f} ms/pass ({glass[False][0]['bounces']:.1f} "
+        f"bounces); glass shadow calls K1c "
+        f"{cd['glass NEE shadow, K1c']['ms']:.4f} / K1d "
+        f"{cd['glass NEE shadow, K1d']['ms']:.4f} ms, "
+        f"{per_pass[False]:g} / {per_pass[True]:g} shadow launches a pass; "
+        f"statistics {stats}; progressive {frames[1]} frames")
+    return dict(ab=ab, cd=cd, per_frame=per_frame, per_pass=per_pass,
+                corn=corn, glass=glass)
+
+
 def main():
     dev = phase_device()
     build_s = phase_build()
@@ -1435,6 +1884,10 @@ def main():
     err_d = max(err_d, mega_cd[f"{GLASS_CALLS}, K1d"]["err"])
     goldens = phase_goldens_megakernel(dev)
     offline_s = phase_offline_app()
+    nee = nee_phases(dev)
+    err_b = max(err_b, *(v["err"] for v in nee["ab"].values()))
+    err_c = max(err_c, nee["cd"]["glass NEE shadow, K1c"]["err"])
+    err_d = max(err_d, nee["cd"]["glass NEE shadow, K1d"]["err"])
     demo_label = "scene_demo (ROLLBACK_TO_ONE + RELATIVE)"
     kb_ms, pb_ms = times_b[demo_label]
 
@@ -1510,28 +1963,52 @@ def main():
         return e
     k1b_goldens = sum(goldens[k][1] for k in ("cornell_v3", "scene_demo",
                                               "tokyo"))
+
+    def shadow_frames(e):
+        """K1b's entry with the NEE frames' shadow calls (7d): back to
+        back, bound and share, and the shadow launches a frame (7b) and a
+        Cornell NEE pass (7c) in the timed runs."""
+        e["nee_shadow"] = {
+            k: {"calls_ms": v["device_ms"], "calls_bound_ms": v["bound_ms"],
+                "calls_share": v["bound_ms"] / v["device_ms"],
+                "launches_per_frame": nee["per_frame"][k]}
+            for k, v in nee["ab"].items()}
+        e["nee_shadow"]["cornell 480x480 NEE megakernel"] = {
+            "launches_per_pass": nee["corn"]["shadow_per_pass"]}
+        return e
+
+    def shadow_pass(e, label, mxu):
+        """K1c's or K1d's entry with the glass NEE pass's recorded shadow
+        calls (7d) and the shadow launches a pass in 7c's timed runs."""
+        v = nee["cd"][label]
+        e["nee_shadow"] = {"calls_ms": v["ms"],
+                           "calls_bound_ms": v["bound_ms"],
+                           "calls_share": v["bound_ms"] / v["ms"],
+                           "launches_per_pass": nee["per_pass"][mxu]}
+        return e
     log(json.dumps({"kernels": [
         megakernel(analytic(entry("march_k1a", "march.cu",
                                   f"{TPU_KERNEL}:297", launch_a, err_a,
                                   ka_ms, pa_ms, bound("k1a")),
                             ("cornell 480x480",)),
                    mega_cornell["bounces"], mega_a),
-        analytic(entry("march_k1b", "march.cu", f"{TPU_KERNEL}:338",
-                       launch_b, err_b, kb_ms, pb_ms, bound("k1b")),
-                 ("tokyo 2880x1620", "engine 768x432"))
-        | {"megakernel": {"golden_launches": k1b_goldens}},
-        megakernel(pooled(entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156",
-                                launch_c, err_c, kc_ms, pc_ms,
-                                bound("k1c")), "k1c",
-                          ("glass 1920x1080, K1c", "metal 3840x2160, K1c")),
-                   mega_glass[False][0]["bounces"],
-                   mega_cd[f"{GLASS_CALLS}, K1c"]),
-        megakernel(pooled(entry("march_k1d", "march_mxu.cu",
-                                f"{TPU_KERNEL}:124", launch_d, err_d, kd_ms,
-                                pd_ms, bound("k1d")), "k1d",
-                          ("glass 1920x1080, K1d", "metal 3840x2160, K1d")),
-                   mega_glass[True][0]["bounces"],
-                   mega_cd[f"{GLASS_CALLS}, K1d"]),
+        shadow_frames(analytic(entry("march_k1b", "march.cu",
+                                     f"{TPU_KERNEL}:338", launch_b, err_b,
+                                     kb_ms, pb_ms, bound("k1b")),
+                               ("tokyo 2880x1620", "engine 768x432"))
+                      | {"megakernel": {"golden_launches": k1b_goldens}}),
+        shadow_pass(megakernel(
+            pooled(entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156",
+                         launch_c, err_c, kc_ms, pc_ms, bound("k1c")), "k1c",
+                   ("glass 1920x1080, K1c", "metal 3840x2160, K1c")),
+            mega_glass[False][0]["bounces"], mega_cd[f"{GLASS_CALLS}, K1c"]),
+            "glass NEE shadow, K1c", False),
+        shadow_pass(megakernel(
+            pooled(entry("march_k1d", "march_mxu.cu", f"{TPU_KERNEL}:124",
+                         launch_d, err_d, kd_ms, pd_ms, bound("k1d")), "k1d",
+                   ("glass 1920x1080, K1d", "metal 3840x2160, K1d")),
+            mega_glass[True][0]["bounces"], mega_cd[f"{GLASS_CALLS}, K1d"]),
+            "glass NEE shadow, K1d", True),
         entry("fma_chains_k2", "speedlight.cu",
               "raytracingpbr_tpu/utils/speedlight.py:94", launch_2, err_2,
               k2_ms, k2_plain, (k2_bound, "operations"))]}))

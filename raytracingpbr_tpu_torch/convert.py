@@ -64,7 +64,10 @@ def environment_from_jax(env, device=None) -> Environment:
                        image=_opt(env.image, device),
                        scale=_t(env.scale, device),
                        color_a=_opt(env.color_a, device),
-                       color_b=_opt(env.color_b, device))
+                       color_b=_opt(env.color_b, device),
+                       s_prob=_opt(env.s_prob, device),
+                       s_alias=_opt(env.s_alias, device),
+                       s_pdf=_opt(env.s_pdf, device))
 
 
 def rays_from_jax(rays, device=None) -> Rays:

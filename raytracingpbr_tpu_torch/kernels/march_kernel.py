@@ -73,6 +73,9 @@ ANALYTIC_BLOCK = 256
 # Kernel launches made by march_resumable_cuda, per variant: plain
 # counters that a run resets and reads to show which path it went through.
 LAUNCHES = {"k1a": 0, "k1b": 0, "k1c": 0, "k1d": 0}
+# Of those, the launches of the escape-bound instance: on a render path,
+# NEE's shadow rays (no model config sets ``cfg.escape_bound``).
+BOUND_LAUNCHES = {"k1a": 0, "k1b": 0, "k1c": 0, "k1d": 0}
 
 _POLICY = {OmegaPolicy.CONSTANT: 0, OmegaPolicy.ROLLBACK_TO_ONE: 1,
            OmegaPolicy.ROLLBACK_HALF_UP: 2}
@@ -88,6 +91,7 @@ _libs = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        BOUND_LAUNCHES[k] = 0
 
 
 def declare(lib: ctypes.CDLL, source: str = "march") -> ctypes.CDLL:
@@ -503,6 +507,8 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
         raise RuntimeError(f"march kernel {kind} launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES[kind] += 1
+    if bound2 is not None:
+        BOUND_LAUNCHES[kind] += 1
     return t, idx, hit, fin, w, s, d, done
 
 

@@ -12,20 +12,29 @@ their end (EXP roulette, an unsplit march, the interaction or the sky, the
 brightness stop), and ``render_image`` averages ``spp`` such samples per
 pixel into a still.
 
+With ``cfg.env_sampling`` both integrators add next-event estimation
+toward the environment: at each continuing surface vertex one draw from
+the environment's baked alias table and a shadow march (``_nee_env``),
+weighted by the lobe roulette's probability of scattering diffusely into
+that direction plus a balance-heuristic share of the reflect lobe
+(``cfg.mis_specular``); the next segment's sky lookup is weighted by the
+complement (``sky_w``: 0 after a diffuse bounce, the reflect lobe's
+balance weight after a reflection, 1 otherwise).
+
 Every random draw is counter-derived from ``(pixel_id, step, stream,
 seed)``. Not ported yet (raise NotImplementedError, naming the ROADMAP
-item that brings them): environment sampling (NEE/MIS, item 12),
-gradients (scan-AD and path replay, item 13) and temporal reprojection
-(item 14).
+item that brings them): gradients (scan-AD and path replay, item 13) and
+temporal reprojection (item 14).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import RenderConfig, Roulette
+from ..config import HitCriterion, RenderConfig, Roulette
 from ..core import rng as rnglib
 from ..core.math import brightness
 from ..core.types import (NO_HIT_T, Camera, FrameState, Rays,
@@ -35,13 +44,14 @@ from . import march as marchlib
 from . import post as postlib
 from . import scene as scenelib
 from . import shade as shadelib
-from .ibl import Environment, sky_color
+from .ibl import Environment, env_pdf, sample_env_baked, sky_color
 from .scene import Scene
 
 # RNG stream ids (use-sites within one step)
 _S_ROULETTE = 0
 _S_CAMERA = 1   # jitter x/y + lens u/v
 _S_SHADE = 2    # hemisphere u/v + lobe u/v
+_S_NEE = 3      # env alias-table draw + in-texel jitter
 
 
 def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
@@ -54,9 +64,6 @@ def _where_rays(mask: torch.Tensor, a: Rays, b: Rays) -> Rays:
 
 
 def _check_supported(cfg: RenderConfig, differentiable=False):
-    if cfg.env_sampling:
-        raise NotImplementedError("environment sampling (NEE/MIS) is not "
-                                  "ported yet (ROADMAP Queue 1, item 12)")
     if differentiable == "replay":
         raise NotImplementedError("path replay (differentiable='replay') is "
                                   "not ported yet (ROADMAP Queue 1, item 13)")
@@ -68,11 +75,119 @@ def _check_supported(cfg: RenderConfig, differentiable=False):
                                   "(ROADMAP Queue 1, item 14)")
 
 
+def shadow_march(scene: Scene, origin, direction, cfg: RenderConfig,
+                 gate) -> torch.Tensor:
+    """Occlusion test of NEE shadow rays: the (N,) bool ``occluded``. The
+    escape bound is on (exact for a yes/no query). With
+    ``cfg.shadow_diet`` the march is tuned for occlusion: the ABSOLUTE hit
+    test at ``cfg.shadow_hit_precision`` (default ``min_dis / 2``) and a
+    budget of ``cfg.shadow_max_raymarch`` (default ``min(128,
+    max_raymarch)``); a ray that spends its budget counts as visible, as in
+    the reference. Lanes outside ``gate`` do no march work."""
+    sc = cfg.replace(escape_bound=True)
+    if cfg.shadow_diet:
+        sc = sc.replace(
+            max_raymarch=(cfg.shadow_max_raymarch
+                          or min(128, cfg.max_raymarch)),
+            hit_criterion=HitCriterion.ABSOLUTE,
+            hit_precision=(cfg.shadow_hit_precision or 0.5 * cfg.min_dis),
+            march_chunk=None)
+    return marchlib.march(scene, origin, direction, sc, active=gate).hit
+
+
+def _nee_env(scene: Scene, env: Environment, index, position, direction,
+             normal, outer, albedo, gate, pixel_id, counter,
+             cfg: RenderConfig, roughness_fresnel: bool = False,
+             lobe_prob: bool = True, visible_rec=None,
+             reflect_kill: Optional[bool] = None):
+    """One next-event sample toward the environment at a surface vertex:
+    estimates ``integral of L_env(w) P_diffuse(w) (albedo / pi) cos dw``
+    with one jittered alias-table draw and a shadow march, where
+    ``P_diffuse`` is ``shade.diffuse_lobe_prob`` (skipped with
+    ``lobe_prob=False``, the diffuse-only shading). Under
+    ``cfg.mis_specular`` it adds the reflect lobe's balance-heuristic
+    share, ``w * P_reflect p_spec / p_env`` with the weight ``w = p_env /
+    (p_env + p_spec)`` detached. Lanes outside ``gate`` do no march work.
+    ``visible_rec``: a recorded visibility mask used in place of the
+    shadow march.
+
+    Returns ``(bank (N, 3), visible (N,))``: the banked radiance, to be
+    multiplied by the arriving throughput, exactly 0 off the visible lanes,
+    and the visibility. Raises ValueError when the environment has no
+    baked table."""
+    if env.s_prob is None:
+        raise ValueError(
+            "cfg.env_sampling requires an environment with a baked alias "
+            "table — build it with ops.ibl.with_env_sampler(env)")
+    dtype = position.dtype
+    # four independent uniforms: the cell, the accept test and the jitter
+    # inside the texel
+    u = rnglib.uniform4(pixel_id, counter, _S_NEE, cfg.seed, dtype)
+    d_l, radiance, pdf = sample_env_baked(env, u[0], u[1],
+                                          u_jitter=(u[2], u[3]))
+    cos = (d_l * normal).sum(-1)
+    gate = gate & (cos > 0.0)
+    if visible_rec is None:
+        origin = position + normal * cfg.min_dis
+        visible = gate & ~shadow_march(scene, origin, d_l, cfg, gate)
+    else:
+        visible = visible_rec
+    pdf_safe = torch.clamp_min(pdf, 1e-12)
+    scale = cos / (math.pi * pdf_safe)
+    if lobe_prob:
+        scale = scale * shadelib.diffuse_lobe_prob(
+            scene, index, direction, normal, outer, d_l, cfg,
+            roughness_fresnel=roughness_fresnel)
+        if cfg.mis_specular:
+            ps = shadelib.specular_env_density(
+                scene, index, direction, normal, outer, d_l, cfg,
+                roughness_fresnel=roughness_fresnel,
+                reflect_kill=reflect_kill)
+            w_l = (pdf_safe / (pdf_safe + torch.clamp_min(ps, 0.0))).detach()
+            scale = scale + w_l * ps / pdf_safe
+    # one mask, after the products: the reference masks ``scale`` before
+    # the lobe product, so a lane whose ray direction is NaN (ROADMAP
+    # Queue 3: ``core/rng.hemispheric``'s 0/0) banks 0 * NaN
+    bank = albedo * radiance * scale[:, None]
+    return torch.where(visible[:, None], bank, torch.zeros_like(bank)), \
+        visible
+
+
+def _next_sky_w(scene: Scene, env: Environment, index, direction, inter,
+                new_dir, gate, cfg: RenderConfig,
+                roughness_fresnel: bool = False,
+                reflect_kill: Optional[bool] = None,
+                diffuse=None) -> torch.Tensor:
+    """The weight on the next segment's sky lookup after an NEE vertex: 0
+    after a diffuse bounce (NEE banked that radiance), the reflect lobe's
+    balance weight ``p_spec / (p_env + p_spec)`` after a reflection under
+    ``cfg.mis_specular``, 1 otherwise and off ``gate``."""
+    ones = torch.ones_like(gate, dtype=direction.dtype)
+    nsw = ones
+    if cfg.mis_specular and inter is not None:
+        ps_b = shadelib.specular_env_density(
+            scene, index, direction, inter.normal, inter.outer, new_dir, cfg,
+            roughness_fresnel=roughness_fresnel, reflect_kill=reflect_kill)
+        w_b = (ps_b / torch.clamp_min(env_pdf(env, new_dir) + ps_b,
+                                      1e-20)).detach()
+        nsw = torch.where(inter.reflect, w_b, nsw)
+    diffuse = inter.diffuse if diffuse is None else diffuse
+    nsw = torch.where(diffuse, torch.zeros_like(nsw), nsw)
+    return torch.where(gate, nsw, ones)
+
+
 def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
                       pixel_id: torch.Tensor, counter, cfg: RenderConfig,
-                      active: Optional[torch.Tensor] = None, resume=None):
+                      active: Optional[torch.Tensor] = None,
+                      prev_sky_w: Optional[torch.Tensor] = None,
+                      resume=None):
     """One bounce: march, surface interaction or sky, emission, brightness
     termination.
+
+    ``prev_sky_w``: with ``cfg.env_sampling``, the weight on this segment's
+    sky lookup (see the module docstring). NEE then banks at every vertex
+    whose path continues (a hit that does not stop, under the bounce cap,
+    active, its segment completed).
 
     ``resume``: the split-march carry ``(march_state (N,4), march_cum
     (N,))``. The march then runs at most ``cfg.march_split`` trips; lanes
@@ -80,8 +195,9 @@ def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
     ``cfg.max_raymarch``, are returned unchanged in ``traced`` with their
     loop state in ``resume_out``.
 
-    Returns ``(traced, t, hit, completed, resume_out)``; the last two are
-    None without ``resume``."""
+    Returns ``(traced, t, hit, nee, next_sky_w, completed, resume_out)``;
+    ``nee`` and ``next_sky_w`` are None without ``cfg.env_sampling``,
+    ``completed`` and ``resume_out`` without ``resume``."""
     completed = None
     resume_out = None
     if resume is not None:
@@ -133,6 +249,27 @@ def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
         color_miss = color_miss * (depth_miss < -1).to(color_miss.dtype)[
             :, None]
 
+    nee = next_sky_w = None
+    if cfg.env_sampling:
+        if prev_sky_w is not None:
+            color_miss = color_miss * prev_sky_w[:, None]
+        # bank only where the path continues: a stopped lane's plain
+        # estimate never looks at the sky again, and a lane at the bounce
+        # cap deposits before its next lookup
+        gate = hit & ~stop & (depth <= cfg.max_raytrace)
+        if active is not None:
+            gate = gate & active
+        if completed is not None:
+            gate = gate & completed
+        # the raw albedo: the bank must not depend on this vertex's lobe
+        albedo = scenelib.materials_at(scene, index).albedo
+        nee, _ = _nee_env(scene, env, index, position, rays.direction,
+                          inter.normal, inter.outer, albedo, gate, pixel_id,
+                          counter, cfg)
+        nee = rays.color * nee
+        next_sky_w = _next_sky_w(scene, env, index, rays.direction, inter,
+                                 inter.direction, gate, cfg)
+
     traced = Rays(
         origin=_where(hit, inter.origin, position),
         direction=_where(hit, inter.direction, rays.direction),
@@ -142,7 +279,11 @@ def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
     if completed is not None:
         # in-flight segments: no shading, no depth advance
         traced = _where_rays(completed, traced, rays)
-    return traced, t, hit, completed, resume_out
+        if next_sky_w is not None:
+            keep = (prev_sky_w if prev_sky_w is not None
+                    else torch.ones_like(next_sky_w))
+            next_sky_w = torch.where(completed, next_sky_w, keep)
+    return traced, t, hit, nee, next_sky_w, completed, resume_out
 
 
 def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
@@ -150,6 +291,7 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
                    cfg: RenderConfig, active: Optional[torch.Tensor] = None,
                    respawn: Optional[torch.Tensor] = None,
                    hit_t: Optional[torch.Tensor] = None,
+                   sky_w: Optional[torch.Tensor] = None,
                    march_state: Optional[torch.Tensor] = None,
                    march_cum: Optional[torch.Tensor] = None):
     """One russian-roulette wavefront step per pixel.
@@ -157,9 +299,12 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
     ``step``: the global step counter (RNG). ``active``: optional per-pixel
     gate (adaptive sampling). ``respawn``: per-pixel camera-sample counter
     (the R2 index under ``cfg.low_discrepancy``). ``hit_t``: primary-hit
-    depth buffer. ``march_state``/``march_cum``: the split-march carry; a
-    lane whose segment is in flight skips roulette, deposit and respawn.
-    Returns ``(rays, accum, respawn, hit_t, march_state, march_cum)``."""
+    depth buffer. ``sky_w``: the weight on each path's next sky lookup
+    (``cfg.env_sampling``; ``FrameState.sky_w``); NEE banks into ``accum``
+    without counting a sample. ``march_state``/``march_cum``: the
+    split-march carry; a lane whose segment is in flight skips roulette,
+    deposit and respawn. Returns ``(rays, accum, respawn, hit_t, sky_w,
+    march_state, march_cum)``."""
     _check_supported(cfg)
     depth = rays.depth
     dtype = rays.color.dtype
@@ -209,9 +354,14 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
         color=_where(finished, fresh.color, color_surv),
         depth=torch.where(finished, 0, depth),
     )
-    traced, march_t, march_hit, completed, resume_out = _trace_one_bounce(
-        scene, env, pre, pixel_id, step, cfg, active=active,
-        resume=(march_state, march_cum) if split else None)
+    prev_sky_w = None
+    if cfg.env_sampling and sky_w is not None:
+        # a respawned lane starts a fresh path: a plain sky lookup
+        prev_sky_w = torch.where(finished, torch.ones_like(sky_w), sky_w)
+    traced, march_t, march_hit, nee, next_sky_w, completed, resume_out = \
+        _trace_one_bounce(scene, env, pre, pixel_id, step, cfg,
+                          active=active, prev_sky_w=prev_sky_w,
+                          resume=(march_state, march_cum) if split else None)
 
     # killed lanes: zero contribution, terminated; the zero sample deposits
     # at the next step's respawn
@@ -237,6 +387,15 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
             rec = rec & active
         hit_t = torch.where(rec, torch.where(march_hit, march_t, NO_HIT_T),
                             hit_t)
+    keep = survive if active is None else survive & active
+    if nee is not None:
+        # part of the in-flight path's estimate: no sample is counted
+        accum = accum + torch.cat(
+            [_where(keep, nee, torch.zeros_like(nee)),
+             torch.zeros_like(u_r)[:, None]], -1)
+    if sky_w is not None and next_sky_w is not None:
+        sky_w = torch.where(keep, next_sky_w,
+                            prev_sky_w if prev_sky_w is not None else sky_w)
     if split:
         ms_new, mc_new = resume_out
         # a killed lane's in-flight segment is dropped with it; gated lanes
@@ -246,7 +405,7 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
             ms_new = _where(active, ms_new, march_state)
             mc_new = torch.where(active, mc_new, march_cum)
         march_state, march_cum = ms_new, mc_new
-    return new_rays, accum, respawn, hit_t, march_state, march_cum
+    return new_rays, accum, respawn, hit_t, sky_w, march_state, march_cum
 
 
 def render_frame(scene: Scene, env: Environment, cam: Camera,
@@ -280,12 +439,13 @@ def render_frame_tile(scene: Scene, env: Environment, cam: Camera,
     if cfg.adaptive_sampling:
         active = state.noise > cfg.noise_threshold
 
-    respawn, hit_t = state.respawn, state.hit_t
+    respawn, hit_t, sky_w = state.respawn, state.hit_t, state.sky_w
     march_state, march_cum = state.march_state, state.march_cum
     for k in range(steps_per_frame):
-        rays, accum, respawn, hit_t, march_state, march_cum = wavefront_step(
+        (rays, accum, respawn, hit_t, sky_w, march_state,
+         march_cum) = wavefront_step(
             scene, env, cam, rays, accum, pixel_id, base + k, cfg,
-            active=active, respawn=respawn, hit_t=hit_t,
+            active=active, respawn=respawn, hit_t=hit_t, sky_w=sky_w,
             march_state=march_state, march_cum=march_cum)
 
     pixels, diff_accum, noise = postlib.post_process(
@@ -293,7 +453,7 @@ def render_frame_tile(scene: Scene, env: Environment, cam: Camera,
         diff_accum=state.diff_accum)
     new_state = state.replace(
         rays=rays, accum=accum, frame=state.frame + 1, pixels=pixels,
-        respawn=respawn, hit_t=hit_t, march_state=march_state,
+        respawn=respawn, hit_t=hit_t, sky_w=sky_w, march_state=march_state,
         march_cum=march_cum,
         diff_accum=diff_accum if diff_accum is not None
         else state.diff_accum,
@@ -362,29 +522,42 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
     (``1 - 1/exp(i/light_quality)``), an unsplit march of
     ``cfg.max_raymarch`` trips gated by ``alive``, the interaction, the
     brightness stop; a miss multiplies the sky color and stops. Forward
-    only: ``differentiable`` True or ``"replay"`` raises, as does
-    ``cfg.env_sampling``.
+    only: ``differentiable`` True or ``"replay"`` raises.
+
+    With ``cfg.env_sampling`` every continuing vertex but the last
+    bounce's banks NEE radiance (under EXP roulette times the
+    continuation's survival probability ``exp(-(i + 1) / light_quality)``,
+    which the plain estimator's next sky lookup would have needed), and
+    the sky lookups are weighted by ``sky_w``; the banked radiance is added
+    to the colour at the end.
 
     ``diffuse_only`` is the minimal Cornell box's shading: a cosine
     hemisphere about the outward normal, the albedo as the throughput.
     ``reflect_kill`` (None: ``roughness_fresnel``) zeroes a below-surface
-    reflection. ``sample_idx``: the sample's uint32 index (an int); the
-    bounce's RNG counter is ``sample_idx * cfg.max_raytrace + i`` modulo
-    2**32, as the reference's uint32 arithmetic wraps. The loop asks
-    whether any lane is alive every :data:`EXIT_CHECK_EVERY` bounces; the
-    result does not depend on it."""
+    reflection. ``sample_idx``: the sample's uint32 index (an int, or an
+    (N,) integer tensor of per-lane indices); the bounce's RNG counter is
+    ``sample_idx * cfg.max_raytrace + i`` modulo 2**32, as the reference's
+    uint32 arithmetic wraps. The loop asks whether any lane is alive every
+    :data:`EXIT_CHECK_EVERY` bounces; the result does not depend on it."""
     _check_supported(cfg, differentiable)
     if reflect_kill is None:
         reflect_kill = roughness_fresnel
     dtype = rays.color.dtype
     max_bounce = cfg.max_raytrace
-    base = (int(sample_idx) & _MASK) * max_bounce
+    if isinstance(sample_idx, torch.Tensor):
+        base = (sample_idx.to(torch.int64) & _MASK) * max_bounce
+    else:
+        base = (int(sample_idx) & _MASK) * max_bounce
 
     origin, direction, color = rays.origin, rays.direction, rays.color
     alive = torch.ones(origin.shape[:1], dtype=torch.bool,
                        device=origin.device)
     bounces = torch.zeros(origin.shape[:1], dtype=torch.int32,
                           device=origin.device)
+    if cfg.env_sampling:
+        # banked NEE radiance, and the weight on the next sky lookup
+        radiance = torch.zeros_like(color)
+        sky_w = torch.ones_like(origin[:, 0])
     with torch.no_grad():
         i = 0
         while i < max_bounce:
@@ -415,6 +588,7 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
                 new_dir = rnglib.hemispheric(normal, u4[0], u4[1])
                 new_origin = res.position
                 color_scale = mat.albedo
+                inter = None
             else:
                 inter = shadelib.ray_surface_interaction(
                     scene, res.index, res.position, direction, u4, cfg,
@@ -423,6 +597,7 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
                     reflect_kill=reflect_kill)
                 new_dir, new_origin = inter.direction, inter.origin
                 color_scale = inter.color_scale
+                normal = inter.normal
 
             # hit: throughput, emission, brightness termination
             color_hit = color * color_scale
@@ -434,6 +609,35 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
             # miss: the sky, and stop (black_background is the wavefront's)
             color_miss = color * sky_color(env, direction)
 
+            if cfg.env_sampling:
+                color_miss = color_miss * sky_w[:, None]
+                # no bank on the last bounce: the loop ends before the sky
+                # lookup it stands in for
+                gate = alive & res.hit & ~stop_hit & (i < max_bounce - 1)
+                if diffuse_only:
+                    nee, _ = _nee_env(scene, env, res.index, res.position,
+                                      direction, normal,
+                                      torch.ones_like(gate), mat.albedo,
+                                      gate, pixel_id, counter, cfg,
+                                      lobe_prob=False)
+                else:
+                    nee, _ = _nee_env(scene, env, res.index, res.position,
+                                      direction, normal, inter.outer,
+                                      mat.albedo, gate, pixel_id, counter,
+                                      cfg, roughness_fresnel=roughness_fresnel,
+                                      reflect_kill=reflect_kill)
+                if cfg.roulette == Roulette.EXP:
+                    nee = nee * torch.exp(-(torch.tensor(i, dtype=dtype)
+                                            + 1.0) / cfg.light_quality)
+                radiance = radiance + _where(gate, color * nee,
+                                             torch.zeros_like(nee))
+                nsw = _next_sky_w(
+                    scene, env, res.index, direction, inter, new_dir, gate,
+                    cfg, roughness_fresnel=roughness_fresnel,
+                    reflect_kill=reflect_kill,
+                    diffuse=torch.ones_like(gate) if diffuse_only else None)
+                sky_w = torch.where(alive, nsw, sky_w)
+
             on = alive & res.hit
             color = _where(on, color_hit,
                            _where(alive & ~res.hit, color_miss, color))
@@ -444,6 +648,8 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
             i += 1
             if i % EXIT_CHECK_EVERY == 0 and not bool(alive.any()):
                 break
+    if cfg.env_sampling:
+        color = color + radiance
     # paths still alive after max_raytrace bounces keep their colour
     return TraceResult(color, bounces)
 

@@ -1,8 +1,11 @@
 """Materials / BSDF shading (port of ``raytracingpbr_tpu/ops/shade.py``):
 one branchless stochastic interaction (roughness-lerped microfacet normal,
-Schlick Fresnel, reflect / refract / diffuse lobe choice)."""
+Schlick Fresnel, reflect / refract / diffuse lobe choice), and the lobe
+probabilities and densities that next-event estimation weighs its
+environment draws with (``diffuse_lobe_prob``, ``specular_env_density``)."""
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -38,6 +41,116 @@ class Interaction(NamedTuple):
 
 def _col(mask: torch.Tensor) -> torch.Tensor:
     return mask[:, None]
+
+
+def _p_reflect(no_i, outer, roughness, metallic, ior, cfg: RenderConfig,
+               roughness_fresnel: bool) -> torch.Tensor:
+    """The lobe roulette's probability of reflecting at a microfacet whose
+    cosine with the incident ray is ``no_i`` (1 under total internal
+    reflection)."""
+    env_ior = cfg.env_ior
+    eta = torch.where(outer, env_ior / ior, ior / env_ior)
+    k = 1.0 - eta * eta * (1.0 - no_i * no_i)
+    f0 = 2.0 * (eta - 1.0) / (eta + 1.0)
+    f0 = f0 * f0
+    if roughness_fresnel and cfg.f0_half:
+        f0 = 0.5 * f0
+    if roughness_fresnel:
+        fr = fresnel_schlick_roughness(no_i, f0, roughness)
+    else:
+        fr = fresnel_schlick(no_i, f0)
+    return torch.where(k < 0.0, 1.0, torch.clamp(fr + metallic, 0.0, 1.0))
+
+
+def diffuse_lobe_prob(scene: Scene, index: torch.Tensor,
+                      direction: torch.Tensor, normal: torch.Tensor,
+                      outer: torch.Tensor, omega_l: torch.Tensor,
+                      cfg: RenderConfig,
+                      roughness_fresnel: bool = False) -> torch.Tensor:
+    """P(the diffuse lobe is chosen | the hemisphere draw landed on
+    ``omega_l``). The roulette's Fresnel term is taken at the microfacet
+    proxy of that draw, so the choice is correlated with the direction; an
+    NEE estimate of the diffuse lobe's environment integral carries this
+    conditional probability. ``normal`` is the incident-faced normal and
+    ``outer`` the sidedness, both from the interaction."""
+    mat = scenelib.materials_at(scene, index)
+    alpha = (mat.roughness * mat.roughness)[:, None]
+    rough_n = normalize(mix(normal, omega_l, alpha))
+    p_reflect = _p_reflect(dot(rough_n, direction), outer, mat.roughness,
+                           mat.metallic, mat.ior, cfg, roughness_fresnel)
+    return (1.0 - p_reflect) * (1.0 - torch.clamp(mat.transmission, 0.0,
+                                                  1.0))
+
+
+def _halfway(omega, direction, normal):
+    """The reflect lobe's admissible halfway vector of ``omega``: the unit
+    vector along ``omega - i`` turned to the normal's side (guarded where
+    ``omega == i`` and on the horizontal sign boundary)."""
+    diff = omega - direction
+    nrm = torch.sqrt(torch.clamp_min((diff * diff).sum(-1, keepdim=True),
+                                     1e-24))
+    m = diff / nrm
+    s = torch.sign(dot(m, normal))
+    return m * torch.where(s == 0.0, 1.0, s)[:, None]
+
+
+def _reflect_density_raw(direction, normal, alpha, omega):
+    """Solid-angle density at ``omega`` of the raw reflect-lobe map: a
+    cosine-hemisphere draw ``h``, the proxy ``m = normalize((1-a) n + a h)``
+    and the reflection ``w = i - 2 (m.i) m``. Inverting through the halfway
+    vector (``dw = 4 |m.i| dm``) and the blend (``k = c (m.n) +
+    sqrt(c^2 ((m.n)^2 - 1) + a^2)``, ``c = 1 - a``) gives
+
+        p(w) = (h.n) k^2 / (pi a^2 (m.h) 4 |m.i|),
+
+    0 where the inversion has no solution. ``alpha`` is clamped away from
+    0."""
+    dtype = direction.dtype
+    a = torch.clamp_min(alpha, 1e-6)
+    c = 1.0 - a
+    m = _halfway(omega, direction, normal)
+    mn = dot(m, normal)
+    disc = c * c * (mn * mn - 1.0) + a * a
+    ok = disc > 0.0
+    k = c * mn + torch.sqrt(torch.clamp_min(disc, 1e-20))
+    h = (k[:, None] * m - c[:, None] * normal) / a[:, None]
+    hn = dot(h, normal)
+    mh = dot(m, h)
+    mi = dot(m, direction)
+    ok = ok & (hn > 0.0) & (mh > 1e-6) & (k > 0.0) & (torch.abs(mi) > 1e-6)
+    p = (hn * k * k) / (math.pi * a * a * torch.clamp_min(mh, 1e-6)
+                        * 4.0 * torch.clamp_min(torch.abs(mi), 1e-6))
+    return torch.where(ok, p, torch.zeros_like(p)).to(dtype)
+
+
+def specular_env_density(scene: Scene, index: torch.Tensor,
+                         direction: torch.Tensor, normal: torch.Tensor,
+                         outer: torch.Tensor, omega_l: torch.Tensor,
+                         cfg: RenderConfig, roughness_fresnel: bool = False,
+                         reflect_kill: Optional[bool] = None
+                         ) -> torch.Tensor:
+    """``P(reflect lobe) * p_spec(omega_l)``: the joint density of the
+    interaction choosing the reflect lobe and scattering into ``omega_l``,
+    with the roulette's probability taken at the halfway vector of
+    ``omega_l``. Without ``reflect_kill`` (default: ``roughness_fresnel``)
+    a below-surface reflection folds onto its mirror, so the density gains
+    the preimage at ``-omega_l``; with it that mass carries no energy and
+    is left out. 0 below the faced normal."""
+    if reflect_kill is None:
+        reflect_kill = roughness_fresnel
+    mat = scenelib.materials_at(scene, index)
+    alpha = mat.roughness * mat.roughness
+
+    def p_with_sel(w):
+        m = _halfway(w, direction, normal)
+        p_sel = _p_reflect(dot(m, direction), outer, mat.roughness,
+                           mat.metallic, mat.ior, cfg, roughness_fresnel)
+        return p_sel * _reflect_density_raw(direction, normal, alpha, w)
+
+    p = p_with_sel(omega_l)
+    if not reflect_kill:
+        p = p + p_with_sel(-omega_l)
+    return torch.where(dot(omega_l, normal) > 0.0, p, torch.zeros_like(p))
 
 
 def ray_surface_interaction(scene: Scene, index: torch.Tensor,

@@ -31,6 +31,7 @@ from raytracingpbr_tpu_torch.kernels import fma_kernel, march_kernel
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import camera as tcamera
 from raytracingpbr_tpu_torch.ops import march as tmarch
+from raytracingpbr_tpu_torch.ops import scene as scenelib
 from raytracingpbr_tpu_torch.ops.scene import (_BUFFERS, ObjectSpec, Scene,
                                                 bake, bucket_layout,
                                                 make_scene)
@@ -64,9 +65,15 @@ def assert_bit_equal(a, b):
 def both(scene, o, d, cfg, active=None, init=None):
     kind = march_kernel.variant(scene, cfg)
     before = march_kernel.LAUNCHES[kind]
+    bound_before = dict(march_kernel.BOUND_LAUNCHES)
     k = tmarch.ResumableResult(*march_kernel.march_resumable_cuda(
         scene, o, d, cfg, active=active, init=init))
-    assert march_kernel.LAUNCHES[kind] == before + (1 if o.shape[0] else 0)
+    launched = 1 if o.shape[0] else 0
+    assert march_kernel.LAUNCHES[kind] == before + launched
+    # the escape-bound instance is counted apart as well
+    bounded = launched if scenelib.escape_bound2(scene, cfg) is not None else 0
+    assert march_kernel.BOUND_LAUNCHES == {
+        v: n + (bounded if v == kind else 0) for v, n in bound_before.items()}
     p = tmarch.march_resumable_plain(scene, o, d, cfg, active=active,
                                      init=init)
     return k, p

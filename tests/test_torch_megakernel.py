@@ -12,7 +12,8 @@
   counter ``sample_idx * max_raytrace + i`` past 2**32 included;
 * asking whether a lane is alive every bounce or every k bounces gives the
   same output bit for bit;
-* the modes not ported yet raise.
+* ``cfg.env_sampling`` without a baked table raises JAX's ValueError, and
+  the modes not ported yet raise.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -191,20 +192,31 @@ def test_early_exit_check_every_k_bit_identical(monkeypatch):
     assert torch.equal(imgs[0], imgs[1])
 
 
-@pytest.mark.parametrize("mode", ["differentiable", "replay",
-                                  "env_sampling"])
+@pytest.mark.parametrize("mode", ["differentiable", "replay"])
 def test_unported_modes_raise(mode):
     cfg = tcornell.minimal_config().replace(resolution=(4, 4))
-    kw = {}
-    if mode == "env_sampling":
-        cfg = cfg.replace(env_sampling=True)
-    else:
-        kw["differentiable"] = True if mode == "differentiable" else "replay"
-    item = "item 12" if mode == "env_sampling" else "item 13"
+    kw = {"differentiable": True if mode == "differentiable" else "replay"}
     args = (tcornell.minimal_scene(CPU), tcornell.sky(CPU))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 13"):
         tinteg.render_image(*args, tcornell.minimal_camera(CPU), cfg, **kw)
     from raytracingpbr_tpu_torch.core.types import make_rays
     rays = make_rays(16, device=CPU)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 13"):
         tinteg.megakernel_trace(*args, rays, torch.arange(16), 0, cfg, **kw)
+
+
+def test_env_sampling_requires_baked_table():
+    """JAX's error (``tests/test_nee.py:327-331``): ``cfg.env_sampling``
+    with an HDR environment that has no baked alias table raises
+    ValueError, in ``render_image`` and in ``megakernel_trace``."""
+    from .test_torch_nee_stats import CAM, base_cfg, sun_env, sun_scene
+    cfg = base_cfg(env_sampling=True)
+    with pytest.raises(ValueError, match="alias"):
+        tinteg.render_image(sun_scene(), sun_env(), CAM, cfg, spp=1)
+    from raytracingpbr_tpu_torch.ops import camera as tcamera
+    pid = torch.arange(cfg.num_pixels)
+    u = trng.uniform4(pid, 0, 1, 0)
+    rays = tcamera.get_ray(CAM, tcamera.pixel_uv(pid, cfg.width, cfg.height,
+                                                 u[0], u[1]), u[2], u[3])
+    with pytest.raises(ValueError, match="alias"):
+        tinteg.megakernel_trace(sun_scene(), sun_env(), rays, pid, 0, cfg)

@@ -1,8 +1,9 @@
 """The port's offline renderer (``raytracingpbr_tpu_torch/apps/offline``)
 on the CPU, at a small size: it writes a PNG per frame and a metrics line,
-resumes past frames already written, runs both integrators, raises for the
-options not ported yet, and with no card and no ``--device`` raises rather
-than render on the CPU."""
+resumes past frames already written, runs both integrators and ``--nee``
+(which raises ValueError for a sky that is not HDR, as JAX's app does),
+and with no card and no ``--device`` raises rather than render on the
+CPU."""
 import json
 import os
 
@@ -43,10 +44,21 @@ def test_wavefront_integrator(tmp_path):
     assert img.shape == (20, 20, 3) and img.mean() > 0
 
 
-def test_nee_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        offline.main(["--scene", "bunny_glass", *ARGS, "--device", "cpu",
+def test_nee_needs_an_hdr_sky(tmp_path):
+    """JAX's error: ``--nee`` on the black-sky Cornell box raises
+    ValueError before anything renders."""
+    with pytest.raises(ValueError, match="HDR"):
+        offline.main(["--scene", "cornell", *ARGS, "--device", "cpu",
                       "--out", str(tmp_path), "--nee"])
+    assert not os.listdir(tmp_path)
+
+
+def test_nee_demo_writes_png(tmp_path):
+    out = str(tmp_path / "out")
+    offline.main(["--scene", "demo", *ARGS, "--device", "cpu", "--out", out,
+                  "--nee"])
+    img = read_png(os.path.join(out, "frame_00000.png"))
+    assert img.shape == (27, 48, 3) and img.mean() > 0
 
 
 def test_no_card_raises(tmp_path):

@@ -158,8 +158,11 @@ def test_import_loads_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import raytracingpbr_tpu_torch.apps.offline\n"
-        "assert 'raytracingpbr_tpu_torch.apps.offline' in sys.modules\n"
-        "bad = [m for m in ('jax', 'flax') if m in sys.modules]\n"
+        "for m in ('apps.offline', 'apps.progressive', 'io.checkpoint',\n"
+        "          'utils.validate', 'utils.profiling', 'ops.ibl'):\n"
+        "    assert 'raytracingpbr_tpu_torch.' + m in sys.modules, m\n"
+        "bad = [m for m in ('jax', 'flax', 'raytracingpbr_tpu')\n"
+        "       if m in sys.modules]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

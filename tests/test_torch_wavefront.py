@@ -11,7 +11,7 @@ from raytracingpbr_tpu.core.types import make_frame_state as j_make_state
 from raytracingpbr_tpu.models import cornell as jcornell
 from raytracingpbr_tpu.ops import integrator as jinteg
 from raytracingpbr_tpu_torch import convert
-from raytracingpbr_tpu_torch.config import RenderConfig
+from raytracingpbr_tpu_torch.config import RenderConfig, Roulette
 from raytracingpbr_tpu_torch.core.types import make_frame_state, refresh
 from raytracingpbr_tpu_torch.models import cornell as tcornell
 from raytracingpbr_tpu_torch.ops import integrator as tinteg
@@ -86,7 +86,7 @@ def test_refresh_rearms_and_keeps_frame():
     assert float(st2.accum[:, 3].max()) <= cfg.samples_per_frame
 
 
-@pytest.mark.parametrize("field", ["env_sampling", "reprojection"])
+@pytest.mark.parametrize("field", ["reprojection"])
 def test_unported_options_raise(field):
     cfg = RenderConfig(resolution=(4, 4), **{field: True})
     with pytest.raises(NotImplementedError):
@@ -94,3 +94,13 @@ def test_unported_options_raise(field):
                             tcornell.full_camera(CPU),
                             make_frame_state(16, CPU),
                             cfg)
+
+
+def test_env_sampling_requires_baked_table():
+    """JAX's error: ``cfg.env_sampling`` with an environment that has no
+    baked alias table raises ValueError (on the first step that banks)."""
+    from .test_torch_nee_stats import CAM, base_cfg, sun_env, sun_scene
+    cfg = base_cfg(env_sampling=True, roulette=Roulette.DEPTH_LINEAR)
+    with pytest.raises(ValueError, match="alias"):
+        tinteg.render_image_progressive(sun_scene(), sun_env(), CAM, cfg,
+                                        spp=1, max_frames=1)
