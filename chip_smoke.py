@@ -145,14 +145,40 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     render of as many frames bit for bit; 6 frames straight equal 3, a
     checkpoint, a load and 3 more in ``accum`` and ``pixels``.
 
+8a. scan-AD on ``bench.py:110-152``'s fwd+bwd protocol: Cornell full
+    480x480, ``max_raytrace`` 8, spp 1, the MSE against zeros, the albedo
+    gradient through ``parallel/train.render_pixels``; one warm-up step,
+    4 timed ending in a sync: s/step, Msamples/s (pixels / s/step), peak
+    memory, K1a's launches a step; every K1a call of one step bit-equal to
+    the plain march.
+8b. path replay at 128 bounces (``bench.py:196-207``), with the march
+    checkpoint and without: the same numbers; the two gradients within
+    rtol 1e-5, atol 1e-7 max; peak memory at 4, 16, 32 and 128 bounces
+    both ways, and scan-AD's at 4 and 16: without the checkpoint the peak
+    stays within 5% from 4 bounces to 16, scan-AD's grows over 1.5x; the
+    K1a calls of one step without the checkpoint (the forward's
+    and the backward's re-march) bit-equal to the plain march.
+8c. replay + NEE at 128 bounces under the 64x32 sun sky
+    (``bench.py:208-215``): the same numbers, K1a the bounces and K1b the
+    shadow rays; every K1a and K1b call of one step bit-equal.
+8d. replay equals scan-AD on the card: Cornell full 480x480, 12 bounces,
+    the albedo and emission gradients within rtol 2e-4, atol 2e-6 max.
+8e. the train step on the card: ``tests/test_parallel.py``'s albedo
+    recovery at 16x16 (30 steps of Adam, cosine schedule from 0.08); then
+    1 + 5 timed steps at full width (Cornell full 480x480, 8 bounces,
+    ``material_only_filter``, dual buffer): s/step, peak memory; K1a on
+    the updated scene bit-equal to the plain march; one step training the
+    matrix at 64x64 (the permutation records dropped), after which K1a on
+    the updated scene is bit-equal too.
+
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON record (K1a and K1b with their mean
 call inside their frames, a call alone and back to back; K1c and K1d with
 theirs; K1a, K1c and K1d with their launches a megakernel pass and their
 3j calls' time, bound and share, K1b with its launches in the goldens;
 K1b, K1c and K1d with their 7d shadow calls' time, bound, share and
-launches), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+launches; K1a and K1b with their launches a step on the gradient paths),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no jax.
 """
 import json
@@ -183,6 +209,7 @@ from raytracingpbr_tpu_torch.ops.integrator import (render_frame,
                                                     render_image,
                                                     render_image_progressive)
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE, BunnyMLP, bunny_mlp_eval
+from raytracingpbr_tpu_torch.parallel import train as ptrain
 from raytracingpbr_tpu_torch.utils import speedlight
 from raytracingpbr_tpu_torch.utils.metrics import psnr
 
@@ -219,6 +246,13 @@ NEE_STATS_RES = (64, 64)
 NEE_SEEDS = 8
 NEE_SPP = 8
 PROGRESSIVE_MINUTES = 0.05
+# gradients (8a-8c): bench.py's timed fwd+bwd steps after one warm-up;
+# the train step (8e): the albedo recovery's size and steps, then timed
+# steps at full width
+GRAD_STEPS = 4
+RECOVERY_RES = (16, 16)
+RECOVERY_STEPS = 30
+TRAIN_TIMED_STEPS = 5
 
 
 def log(*a):
@@ -1844,6 +1878,383 @@ def nee_phases(dev):
                 corn=corn, glass=glass)
 
 
+# --- gradients: scan-AD, path replay and the train step ---------------------
+
+
+def grad_config(max_raytrace, env_sampling=False, **kw):
+    """``bench.py:110-152``'s fwd+bwd configuration: Cornell full at
+    480x480 with ``max_raytrace`` bounces (and NEE under the sun sky)."""
+    return cornell.full_config().replace(max_raytrace=max_raytrace,
+                                         env_sampling=env_sampling, **kw)
+
+
+def albedo_grad(scene, env, cam, cfg, mode, s, target=None):
+    """One fwd+bwd step of ``bench.py``'s protocol: ``render_pixels`` at
+    spp 1, sample offset ``s``, the MSE against ``target`` (zeros), the
+    gradient of ``albedo`` (``mode``: True scan-AD, ``"replay"``)."""
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64,
+                       device=scene.device)
+    albedo = scene.albedo.clone().requires_grad_(True)
+    img = ptrain.render_pixels(scene.replace(albedo=albedo), env, cam, pid,
+                               cfg, spp=1, sample_offset=s,
+                               differentiable=mode)
+    target = torch.zeros_like(img) if target is None else target
+    (g,) = torch.autograd.grad(torch.mean((img - target) ** 2), albedo)
+    return g
+
+
+def fwd_bwd(label, scene, env, cam, cfg, mode, kinds, steps=GRAD_STEPS):
+    """``bench.py``'s fwd+bwd protocol: one warm-up step (sample 0), then
+    ``steps`` timed steps (samples 1..steps) ending in a sync. The launch
+    counts are set to 0 before the timed steps and read after: only
+    ``kinds`` may launch, each at least once. Returns s/step, Msamples/s
+    (pixels / s/step), the steps' peak GiB (above what was allocated
+    before them), launches a step and the last gradient."""
+    t0 = time.perf_counter()
+    albedo_grad(scene, env, cam, cfg, mode, 0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    march_kernel.reset_launches()
+    t0 = time.perf_counter()
+    for s in range(1, steps + 1):
+        g = albedo_grad(scene, env, cam, cfg, mode, s)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = dict(march_kernel.LAUNCHES)
+    shadow = sum(march_kernel.BOUND_LAUNCHES.values())
+    if not all(launches[k] for k in kinds) or any(
+            v for k, v in launches.items() if k not in kinds):
+        raise AssertionError(f"{label}: expected {kinds} launches alone, "
+                             f"got {launches}")
+    if bool(shadow) != cfg.env_sampling:
+        raise AssertionError(f"{label}: escape-bound launches {shadow} with "
+                             f"env_sampling={cfg.env_sampling}")
+    if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
+        raise AssertionError(f"{label}: the albedo gradient is not finite "
+                             f"and nonzero: {g.tolist()}")
+    out = dict(s=dt, msps=cfg.num_pixels / dt / 1e6,
+               mem=(torch.cuda.max_memory_allocated() - held) / 2**30,
+               launches={k: launches[k] / steps for k in kinds},
+               shadow=shadow / steps, grad=g)
+    log(f"[{label}] warm-up step {warm:.2f} s; {dt:.4f} s/step, "
+        f"{out['msps']:.4f} Msamples/s over {steps} steps; peak device "
+        f"memory {out['mem']:.3f} GiB above the {held / 2**30:.3f} held "
+        f"before; launches a step "
+        f"{out['launches']}, escape-bound (shadow) {out['shadow']:g}; "
+        f"card {card_line()}")
+    return out
+
+
+def step_anatomy(label, scene, env, cam, cfg, mode, out):
+    """One profiled fwd+bwd step (device busy, idle share of the timed
+    s/step, the top kernels) and the host syncs of one step, into
+    ``out``."""
+    fn = lambda: albedo_grad(scene, env, cam, cfg, mode, 7)
+    out["profile"] = pass_profile(f"[{label}]", fn, out["s"] * 1e3)
+    out["syncs"] = host_syncs(fn)
+    log(f"[{label}] host syncs a step: {out['syncs']}")
+
+
+def record_step(fn):
+    """Runs ``fn()`` with every march kernel call's inputs recorded
+    (cloned): ``[(origin, direction, active, init, cfg)]``."""
+    real = march_kernel.march_resumable_cuda
+    calls = []
+
+    def record(sc, o, d, c, active=None, init=None, **k):
+        calls.append((sc, (o.clone(), d.clone(),
+                           None if active is None else active.clone(),
+                           init, c)))
+        return real(sc, o, d, c, active=active, init=init, **k)
+    march_kernel.march_resumable_cuda = record
+    try:
+        fn()
+    finally:
+        march_kernel.march_resumable_cuda = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def hold_calls(label, calls):
+    """Each recorded call bit-equal to the plain march (kernel and plain
+    both run anew on the recorded inputs). Returns {kind: (calls, max abs
+    err)}."""
+    out = {}
+    for sc, (o, d, a, i, c) in calls:
+        kind = march_kernel.variant(sc, c)
+        _, err = compare(sc, o, d, c, a, i)
+        n, e = out.get(kind, (0, 0.0))
+        out[kind] = (n + 1, max(e, err))
+    log(f"[{label}] every march call of one step bit-equal to the plain "
+        f"march: " + ", ".join(f"{k.upper()} {n} calls" for k, (n, _)
+                               in sorted(out.items())))
+    return out
+
+
+def peak_step(scene, env, cam, cfg, mode):
+    """Peak device memory (GiB) of one fwd+bwd step, above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    albedo_grad(scene, env, cam, cfg, mode, 9)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 2**30
+
+
+def phase_scan_ad(dev):
+    """8a: scan-AD on ``bench.py:110-152``'s protocol (Cornell full
+    480x480, 8 bounces, spp 1, MSE against zeros, the albedo gradient):
+    K1a a bounce; one profiled step and its host syncs. Then every K1a
+    call of one step held bit-equal to the plain march."""
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    cfg = grad_config(8)
+    out = fwd_bwd("8a scan-AD, 8 bounces", scene, env, cam, cfg, True,
+                  ("k1a",))
+    step_anatomy("8a", scene, env, cam, cfg, True, out)
+    calls = record_step(lambda: albedo_grad(scene, env, cam, cfg, True, 5))
+    out["held"] = hold_calls("8a", calls)
+    return out
+
+
+def phase_replay(dev):
+    """8b: path replay at 128 bounces (``bench.py:196-207``) with the march
+    checkpoint (the default here) and without it, the same protocol; the
+    two gradients within ``tests/test_replay.py:222``'s bar (rtol 1e-5,
+    atol 1e-7 max); peak memory at 4, 16, 32 and 128 bounces both ways,
+    and scan-AD's at 4 and 16 (the O(rays) claim: without the checkpoint
+    the peak does not grow from 4 bounces to 16, while scan-AD's does).
+    The K1a calls of one step without the checkpoint (the
+    forward's and the re-march's) held bit-equal to the plain march."""
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    out = {}
+    for ckpt in (True, False):
+        cfg = grad_config(128, replay_march_checkpoint=ckpt)
+        out[ckpt] = fwd_bwd(f"8b replay, 128 bounces, checkpoint {ckpt}",
+                            scene, env, cam, cfg, "replay", ("k1a",))
+    step_anatomy("8b", scene, env, cam, grad_config(128), "replay",
+                 out[True])
+    a, b = out[True]["grad"], out[False]["grad"]
+    torch.testing.assert_close(b, a, rtol=1e-5,
+                               atol=1e-7 * float(a.abs().max()))
+    log(f"[8b] checkpoint on and off: albedo gradients within rtol 1e-5 "
+        f"(max |diff| {float((a - b).abs().max()):.3e} of "
+        f"{float(a.abs().max()):.3e})")
+    # the loop runs about 19 bounces at 128, so 32 and 128 run the same
+    # bounces and cannot show growth: the O(rays) check is 4 against 16,
+    # which it reaches, with scan-AD's peak (a graph a bounce) beside it
+    modes = {"scan-AD": (True, None, (4, 16)),
+             "replay, checkpoint on": ("replay", True, (4, 16, 32, 128)),
+             "replay, checkpoint off": ("replay", False, (4, 16, 32, 128))}
+    peaks = {}
+    for label, (mode, ckpt, budgets) in modes.items():
+        for bounces in budgets:
+            cfg = (grad_config(bounces) if ckpt is None else
+                   grad_config(bounces, replay_march_checkpoint=ckpt))
+            peaks[(label, bounces)] = peak_step(scene, env, cam, cfg, mode)
+    log("[8b] peak device memory of a step: " + "; ".join(
+        f"{k[0]}, {k[1]} bounces {v:.3f} GiB" for k, v in peaks.items()))
+    grow = {label: peaks[(label, 16)] / peaks[(label, 4)] for label in modes}
+    log("[8b] peak at 16 bounces over 4: " + ", ".join(
+        f"{k} {v:.4f}x" for k, v in grow.items()))
+    if not (grow["replay, checkpoint off"] < 1.05 and grow["scan-AD"] > 1.5):
+        raise AssertionError(f"8b: replay's peak without the checkpoint "
+                             f"grew with the bounces, or scan-AD's did not "
+                             f"(16 over 4 bounces: {grow})")
+    out["peaks"] = peaks
+    cfg = grad_config(128, replay_march_checkpoint=False)
+    calls = record_step(lambda: albedo_grad(scene, env, cam, cfg, "replay",
+                                            5))
+    out["held"] = hold_calls("8b", calls)
+    return out
+
+
+def phase_replay_nee(dev):
+    """8c: replay + NEE at 128 bounces (``bench.py:208-215``) under the
+    64x32 sun sky, the same protocol: K1a the bounces, K1b the shadow
+    rays. The K1a and K1b calls of one step held bit-equal to the plain
+    march."""
+    scene, cam = cornell.full_scene(dev), cornell.full_camera(dev)
+    env = ibl.with_env_sampler(sun_sky(dev))
+    cfg = grad_config(128, env_sampling=True)
+    out = fwd_bwd("8c replay + NEE, 128 bounces", scene, env, cam, cfg,
+                  "replay", ("k1a", "k1b"))
+    step_anatomy("8c", scene, env, cam, cfg, "replay", out)
+    calls = record_step(lambda: albedo_grad(scene, env, cam, cfg, "replay",
+                                            5))
+    out["held"] = hold_calls("8c", calls)
+    if "k1b" not in out["held"]:
+        raise AssertionError("8c: no shadow call was recorded")
+    return out
+
+
+def phase_replay_vs_scan(dev):
+    """8d: replay equals scan-AD on the card: Cornell full 480x480, 12
+    bounces, the albedo and emission gradients of the mean image at
+    ``tests/test_replay.py:66``'s bar (rtol 2e-4, atol 2e-6 max)."""
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    cfg = grad_config(12)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+    grads = {}
+    for mode in (True, "replay"):
+        leaves = {k: getattr(scene, k).clone().requires_grad_(True)
+                  for k in ("albedo", "emission")}
+        img = ptrain.render_pixels(scene.replace(**leaves), env, cam, pid,
+                                   cfg, spp=1, differentiable=mode)
+        grads[mode] = torch.autograd.grad(img.mean(), list(leaves.values()))
+    worst = 0.0
+    for name, a, b in zip(("albedo", "emission"), grads[True],
+                          grads["replay"]):
+        if not float(a.abs().max()) > 0:
+            raise AssertionError(f"8d: scan-AD's {name} gradient is 0")
+        torch.testing.assert_close(b, a, rtol=2e-4,
+                                   atol=2e-6 * float(a.abs().max()))
+        worst = max(worst, float(((a - b).abs() / a.abs().clamp_min(
+            1e-30)).max()))
+    log(f"[8d] replay vs scan-AD, {cfg.width}x{cfg.height} x 12 bounces: "
+        f"albedo and emission within rtol 2e-4 (largest relative difference "
+        f"{worst:.3e})")
+    return worst
+
+
+def phase_train(dev):
+    """8e: the train step on the card. ``tests/test_parallel.py:236-282``'s
+    albedo recovery on one card (16x16, 30 steps of Adam under the cosine
+    schedule from 0.08, albedo only): the last three losses average under
+    0.2x the first, the albedo within 0.1 of the truth. Then 1 + 5 timed
+    steps at full width (Cornell full 480x480, 8 bounces, materials only,
+    dual buffer, Adam at 0.01 toward a render of the true scene), and one
+    K1a call on the updated scene held against the plain march; and one
+    step that trains the matrix (rot_perm dropped) at 64x64, after which
+    K1a on the updated scene is held against the plain march too."""
+    cfg = RenderConfig(resolution=RECOVERY_RES, max_raymarch=48,
+                       max_raytrace=4, light_quality=1e9,
+                       roulette=Roulette.EXP, omega=1.0,
+                       omega_policy=OmegaPolicy.CONSTANT,
+                       hit_criterion=HitCriterion.ABSOLUTE,
+                       hit_precision=1e-4, march_t0=0.005, max_dis=100.0)
+    env = ibl.white_sky(device=dev)
+    cam = make_camera(lookfrom=(0, 0, 3), lookat=(0, 0, 0), vfov=40.0,
+                      aspect=1.0, aperture=0.0, focus=1.0, device=dev)
+
+    def sphere(albedo):
+        return scenelib.make_scene([scenelib.ObjectSpec(
+            SHAPE.SPHERE, position=(0, 0, 0), scale=(1, 1, 1),
+            albedo=albedo, roughness=1.0)], device=dev)
+
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+    target = ptrain.render_pixels(sphere((0.2, 0.6, 0.8)), env, cam, pid,
+                                  cfg, spp=8, sample_offset=10_000,
+                                  differentiable=False)
+    step = ptrain.make_sharded_train_step(
+        env, cam, cfg, spp=2, param_filter=ptrain.albedo_only_filter)
+    ts = ptrain.make_train_state(sphere((0.5, 0.5, 0.5)), ptrain.adam(
+        ptrain.cosine_decay_schedule(0.08, RECOVERY_STEPS, alpha=0.05)))
+    march_kernel.reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(RECOVERY_STEPS):
+        ts, loss = step(ts, target)
+        losses.append(float(loss))
+    rec_s = time.perf_counter() - t0
+    launches = dict(march_kernel.LAUNCHES)
+    albedo = ts.scene.albedo[0].tolist()
+    if not (statistics.mean(losses[-3:]) < 0.2 * losses[0]
+            and max(abs(a - b) for a, b in zip(albedo, (0.2, 0.6, 0.8)))
+            < 0.1 and launches["k1a"] > 0):
+        raise AssertionError(f"8e: the albedo was not recovered: losses "
+                             f"{losses}, albedo {albedo}, launches "
+                             f"{launches}")
+    log(f"[8e] albedo recovery 16x16, {RECOVERY_STEPS} steps on the card in "
+        f"{rec_s:.2f} s: loss {losses[0]:.5f} -> "
+        f"{statistics.mean(losses[-3:]):.5f} (last three), albedo "
+        f"{[round(a, 4) for a in albedo]} against (0.2, 0.6, 0.8); K1a "
+        f"launches {launches['k1a']}")
+
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    cfg = grad_config(8)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+    target = ptrain.render_pixels(scene, env, cam, pid, cfg, spp=1,
+                                  sample_offset=10_000,
+                                  differentiable=False)
+    start = scene.replace(albedo=scene.albedo * 0.8)
+    step = ptrain.make_sharded_train_step(
+        env, cam, cfg, spp=1, param_filter=ptrain.material_only_filter)
+    ts = ptrain.make_train_state(start, ptrain.adam(0.01))
+    ts, _ = step(ts, target)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    march_kernel.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        ts, loss = step(ts, target)
+    loss = float(loss)
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+    launches = dict(march_kernel.LAUNCHES)
+    mem = (torch.cuda.max_memory_allocated() - held) / 2**30
+    if not (np.isfinite(loss) and launches["k1a"] > 0
+            and not any(v for k, v in launches.items() if k != "k1a")):
+        raise AssertionError(f"8e: loss {loss}, launches {launches}")
+    o, d = primaries(cfg, cam)
+    _, err = compare(ts.scene, o, d, cfg)
+    log(f"[8e] train step, Cornell full {cfg.width}x{cfg.height}, 8 "
+        f"bounces, materials "
+        f"only, dual buffer: {dt:.4f} s/step over {TRAIN_TIMED_STEPS} "
+        f"steps ({cfg.num_pixels / dt / 1e6:.4f} Msamples/s of the "
+        f"differentiated buffer), peak device memory {mem:.3f} GiB above "
+        f"what the steps began with, K1a "
+        f"launches a step {launches['k1a'] / TRAIN_TIMED_STEPS:g}, loss "
+        f"{loss:.6f}; card {card_line()}; K1a on the updated scene's "
+        f"primaries bit-equal to the plain march")
+
+    small = cfg.replace(resolution=(64, 64))
+    step = ptrain.make_sharded_train_step(
+        ibl.gradient_sky(device=dev), cam, small,
+        param_filter=ptrain.param_mask({"matrix"}))
+    ts = ptrain.make_train_state(scene, ptrain.adam(0.05))
+    ts, _ = step(ts, torch.zeros((small.num_pixels, 3), device=dev))
+    if torch.equal(ts.scene.matrix, scene.matrix) or any(
+            p is not None for p in ts.scene.rot_perm):
+        raise AssertionError("8e: the matrix step left the matrix or the "
+                             "permutation records as they were")
+    o, d = primaries(cfg, cam)
+    compare(ts.scene, o, d, cfg)
+    log(f"[8e] one step training the matrix (64x64, gradient sky): the "
+        f"permutation records dropped, K1a on the updated scene's "
+        f"{cfg.width}x{cfg.height} primaries bit-equal to the plain march")
+    return dict(recovery_s=rec_s, losses=losses, albedo=albedo, s=dt,
+                mem=mem, launches=launches["k1a"] / TRAIN_TIMED_STEPS)
+
+
+def gradient_phases(dev):
+    """8a-8e. Returns what the summary and the kernels line read."""
+    scan = phase_scan_ad(dev)
+    rep = phase_replay(dev)
+    nee = phase_replay_nee(dev)
+    worst = phase_replay_vs_scan(dev)
+    train = phase_train(dev)
+    log(f"[8] summary ({card_line()}): scan-AD 8 bounces {scan['s']:.4f} "
+        f"s/step, {scan['msps']:.4f} Msamples/s, {scan['mem']:.3f} GiB; "
+        f"replay 128 bounces {rep[True]['s']:.4f} s/step, "
+        f"{rep[True]['msps']:.4f} Msamples/s, {rep[True]['mem']:.3f} GiB "
+        f"(checkpoint off {rep[False]['s']:.4f} s/step, "
+        f"{rep[False]['mem']:.3f} GiB); replay + NEE {nee['s']:.4f} "
+        f"s/step, {nee['msps']:.4f} Msamples/s, {nee['mem']:.3f} GiB; "
+        f"replay vs scan-AD rel {worst:.3e}; train step {train['s']:.4f} "
+        f"s/step, {train['mem']:.3f} GiB")
+    held = [scan["held"], rep["held"], nee["held"]]
+    err = lambda k: max((h[k][1] for h in held if k in h), default=0.0)
+    return dict(scan=scan, rep=rep, nee=nee, worst=worst, train=train,
+                err_a=err("k1a"), err_b=err("k1b"))
+
+
 def main():
     dev = phase_device()
     build_s = phase_build()
@@ -1885,6 +2296,9 @@ def main():
     goldens = phase_goldens_megakernel(dev)
     offline_s = phase_offline_app()
     nee = nee_phases(dev)
+    grads = gradient_phases(dev)
+    err_a = max(err_a, grads["err_a"])
+    err_b = max(err_b, grads["err_b"])
     err_b = max(err_b, *(v["err"] for v in nee["ab"].values()))
     err_c = max(err_c, nee["cd"]["glass NEE shadow, K1c"]["err"])
     err_d = max(err_d, nee["cd"]["glass NEE shadow, K1d"]["err"])
@@ -1986,17 +2400,29 @@ def main():
                            "calls_share": v["bound_ms"] / v["ms"],
                            "launches_per_pass": nee["per_pass"][mxu]}
         return e
+    # the gradient paths' launches a step (8a-8c) and a train step (8e)
+    g_a = {"gradients": {"launches_per_step": {
+        "scan-AD 8 bounces": grads["scan"]["launches"]["k1a"],
+        "replay 128 bounces": grads["rep"][True]["launches"]["k1a"],
+        "replay 128 bounces, no checkpoint":
+            grads["rep"][False]["launches"]["k1a"],
+        "replay + NEE 128 bounces": grads["nee"]["launches"]["k1a"],
+        "train step 8 bounces": grads["train"]["launches"]}}}
+    g_b = {"gradients": {"launches_per_step": {
+        "replay + NEE 128 bounces (shadow)":
+            grads["nee"]["launches"]["k1b"]}}}
     log(json.dumps({"kernels": [
         megakernel(analytic(entry("march_k1a", "march.cu",
                                   f"{TPU_KERNEL}:297", launch_a, err_a,
                                   ka_ms, pa_ms, bound("k1a")),
                             ("cornell 480x480",)),
-                   mega_cornell["bounces"], mega_a),
+                   mega_cornell["bounces"], mega_a) | g_a,
         shadow_frames(analytic(entry("march_k1b", "march.cu",
                                      f"{TPU_KERNEL}:338", launch_b, err_b,
                                      kb_ms, pb_ms, bound("k1b")),
                                ("tokyo 2880x1620", "engine 768x432"))
-                      | {"megakernel": {"golden_launches": k1b_goldens}}),
+                      | {"megakernel": {"golden_launches": k1b_goldens}}
+                      | g_b),
         shadow_pass(megakernel(
             pooled(entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156",
                          launch_c, err_c, kc_ms, pc_ms, bound("k1c")), "k1c",

@@ -5,8 +5,10 @@ Same module names as the JAX package, written in PyTorch's idiom: scenes are
 tensors, and every function follows the device of the tensors it is given.
 Every kernel the JAX package wrote in Pallas for the TPU is a hand-written
 CUDA kernel here (``csrc/``), built at first use; the plain PyTorch version
-of each stays beside it and serves CPU tensors. This package never imports
-jax.
+of each stays beside it and serves CPU tensors. Gradients (scan-AD and path
+replay through ``render_image`` / ``render_pixels``, the train step in
+``parallel.train``) are autograd's, the march attached at the hit point.
+This package never imports jax.
 """
 
 from .config import (DEFAULT_CONFIG, HitCriterion, OmegaPolicy, RenderConfig,
@@ -20,5 +22,6 @@ from .ops.integrator import (megakernel_trace, render_frame, render_image,
 from .ops.march import march, march_resumable
 from .ops.scene import ObjectSpec, Scene, make_scene
 from .ops.sdf import SHAPE
+from .parallel.train import render_pixels
 
 __version__ = "0.1.0"

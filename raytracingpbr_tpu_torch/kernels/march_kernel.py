@@ -452,6 +452,10 @@ def march_resumable_cuda(scene, origin: torch.Tensor,
         if v.shape != (n, 3) or v.dtype != torch.float32:
             raise ValueError(f"{name}: expected ({n}, 3) float32, got "
                              f"{tuple(v.shape)} {v.dtype}")
+    if scene.position.dtype != torch.float32:
+        # the kernels are f32: a float64 scene is refused, never cast
+        raise ValueError(f"scene buffers: expected float32, got "
+                         f"{scene.position.dtype}")
     if scene.position.device != origin.device:
         raise ValueError(f"scene on {scene.position.device}, rays on "
                          f"{origin.device}")

@@ -21,13 +21,21 @@ that direction plus a balance-heuristic share of the reflect lobe
 complement (``sky_w``: 0 after a diffuse bounce, the reflect lobe's
 balance weight after a reflection, 1 otherwise).
 
+Gradients: ``megakernel_trace(differentiable=True)`` (scan-AD) records
+the bounce loop in autograd's graph, the march attached at each hit point
+(``march._hit_t``) and the normal differentiable in the scene
+(``scene.calc_normal``); ``differentiable="replay"`` is path replay
+(``ops/replay.py``): material and environment gradients at the
+reference's bounce budgets in O(rays) memory. ``wavefront_step`` takes the
+same flag for its one bounce.
+
 Every random draw is counter-derived from ``(pixel_id, step, stream,
-seed)``. Not ported yet (raise NotImplementedError, naming the ROADMAP
-item that brings them): gradients (scan-AD and path replay, item 13) and
-temporal reprojection (item 14).
+seed)``. Not ported yet: temporal reprojection (``cfg.reprojection``
+raises NotImplementedError, naming ROADMAP item 14).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import NamedTuple, Optional
@@ -63,13 +71,7 @@ def _where_rays(mask: torch.Tensor, a: Rays, b: Rays) -> Rays:
                   for f in dataclasses.fields(Rays)))
 
 
-def _check_supported(cfg: RenderConfig, differentiable=False):
-    if differentiable == "replay":
-        raise NotImplementedError("path replay (differentiable='replay') is "
-                                  "not ported yet (ROADMAP Queue 1, item 13)")
-    if differentiable:
-        raise NotImplementedError("differentiable rendering (scan-AD) is not "
-                                  "ported yet (ROADMAP Queue 1, item 13)")
+def _check_supported(cfg: RenderConfig):
     if cfg.reprojection:
         raise NotImplementedError("temporal reprojection is not ported yet "
                                   "(ROADMAP Queue 1, item 14)")
@@ -92,7 +94,8 @@ def shadow_march(scene: Scene, origin, direction, cfg: RenderConfig,
             hit_criterion=HitCriterion.ABSOLUTE,
             hit_precision=(cfg.shadow_hit_precision or 0.5 * cfg.min_dis),
             march_chunk=None)
-    return marchlib.march(scene, origin, direction, sc, active=gate).hit
+    return marchlib.march(scene, origin, direction, sc,
+                          differentiable=False, active=gate).hit
 
 
 def _nee_env(scene: Scene, env: Environment, index, position, direction,
@@ -178,6 +181,7 @@ def _next_sky_w(scene: Scene, env: Environment, index, direction, inter,
 
 def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
                       pixel_id: torch.Tensor, counter, cfg: RenderConfig,
+                      differentiable: bool = False,
                       active: Optional[torch.Tensor] = None,
                       prev_sky_w: Optional[torch.Tensor] = None,
                       resume=None):
@@ -194,6 +198,10 @@ def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
     whose segment neither hit nor escaped, and has not used up
     ``cfg.max_raymarch``, are returned unchanged in ``traced`` with their
     loop state in ``resume_out``.
+
+    ``differentiable``: attach the march's hit-point gradients
+    (``march._hit_t``; under a split march on the lanes whose segment
+    completed).
 
     Returns ``(traced, t, hit, nee, next_sky_w, completed, resume_out)``;
     ``nee`` and ``next_sky_w`` are None without ``cfg.env_sampling``,
@@ -214,6 +222,9 @@ def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
         cum_new = mcum + rr.fin
         completed = act & ((rr.done > 0) | (cum_new >= cfg.max_raymarch))
         t, index, hit = rr.t, rr.index, rr.hit
+        if differentiable:
+            t = marchlib._hit_t(scene, rays.origin, rays.direction, t, index,
+                                hit & completed)
         # completed lanes re-arm next step; in-flight lanes carry the exact
         # loop state (gated-inactive lanes echo their init and pause)
         resume_out = (
@@ -222,7 +233,7 @@ def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
             torch.where(completed, 0, cum_new).to(mcum.dtype))
     else:
         res = marchlib.march(scene, rays.origin, rays.direction, cfg,
-                             active=active)
+                             differentiable=differentiable, active=active)
         t, index, hit = res.t, res.index, res.hit
     position = rays.origin + t[:, None] * rays.direction
     depth = rays.depth + 1
@@ -293,7 +304,8 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
                    hit_t: Optional[torch.Tensor] = None,
                    sky_w: Optional[torch.Tensor] = None,
                    march_state: Optional[torch.Tensor] = None,
-                   march_cum: Optional[torch.Tensor] = None):
+                   march_cum: Optional[torch.Tensor] = None,
+                   differentiable: bool = False):
     """One russian-roulette wavefront step per pixel.
 
     ``step``: the global step counter (RNG). ``active``: optional per-pixel
@@ -303,8 +315,9 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
     (``cfg.env_sampling``; ``FrameState.sky_w``); NEE banks into ``accum``
     without counting a sample. ``march_state``/``march_cum``: the
     split-march carry; a lane whose segment is in flight skips roulette,
-    deposit and respawn. Returns ``(rays, accum, respawn, hit_t, sky_w,
-    march_state, march_cum)``."""
+    deposit and respawn. ``differentiable``: attach the march's hit-point
+    gradients (``march._hit_t``). Returns ``(rays, accum, respawn, hit_t,
+    sky_w, march_state, march_cum)``."""
     _check_supported(cfg)
     depth = rays.depth
     dtype = rays.color.dtype
@@ -360,7 +373,8 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
         prev_sky_w = torch.where(finished, torch.ones_like(sky_w), sky_w)
     traced, march_t, march_hit, nee, next_sky_w, completed, resume_out = \
         _trace_one_bounce(scene, env, pre, pixel_id, step, cfg,
-                          active=active, prev_sky_w=prev_sky_w,
+                          differentiable=differentiable, active=active,
+                          prev_sky_w=prev_sky_w,
                           resume=(march_state, march_cum) if split else None)
 
     # killed lanes: zero contribution, terminated; the zero sample deposits
@@ -512,8 +526,16 @@ class TraceResult(NamedTuple):
     bounces: torch.Tensor  # (N,) i32 bounce count (diagnostics)
 
 
+def _sample_base(sample_idx, max_bounce: int):
+    """``sample_idx * max_bounce`` for the bounce counters ``(base + i)``
+    modulo 2**32: an int, or an int64 tensor of per-lane values."""
+    if isinstance(sample_idx, torch.Tensor):
+        return (sample_idx.to(torch.int64) & _MASK) * max_bounce
+    return (int(sample_idx) & _MASK) * max_bounce
+
+
 def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
-                     pixel_id: torch.Tensor, sample_idx: int,
+                     pixel_id: torch.Tensor, sample_idx,
                      cfg: RenderConfig, diffuse_only: bool = False,
                      differentiable=False, roughness_fresnel: bool = True,
                      restart_at_hit: bool = True,
@@ -521,8 +543,16 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
     """Full bounce loop per sample: EXP russian roulette
     (``1 - 1/exp(i/light_quality)``), an unsplit march of
     ``cfg.max_raymarch`` trips gated by ``alive``, the interaction, the
-    brightness stop; a miss multiplies the sky color and stops. Forward
-    only: ``differentiable`` True or ``"replay"`` raises.
+    brightness stop; a miss multiplies the sky color and stops.
+
+    ``differentiable``: False (a forward render, no graph recorded), True
+    (scan-AD: the loop runs under autograd with the march attached at each
+    hit, geometry gradients included; memory grows with the bounces the
+    loop runs), or ``"replay"`` (path replay, ``ops/replay.trace_replay``:
+    material and environment gradients in O(rays) memory). The JAX package
+    scans a fixed ``max_raytrace`` bounces for scan-AD only because its
+    while loop has no transpose; a bounce with no lane alive changes
+    nothing, so the loop here ends when none is, in every mode.
 
     With ``cfg.env_sampling`` every continuing vertex but the last
     bounce's banks NEE radiance (under EXP roulette times the
@@ -533,21 +563,29 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
 
     ``diffuse_only`` is the minimal Cornell box's shading: a cosine
     hemisphere about the outward normal, the albedo as the throughput.
-    ``reflect_kill`` (None: ``roughness_fresnel``) zeroes a below-surface
-    reflection. ``sample_idx``: the sample's uint32 index (an int, or an
-    (N,) integer tensor of per-lane indices); the bounce's RNG counter is
-    ``sample_idx * cfg.max_raytrace + i`` modulo 2**32, as the reference's
-    uint32 arithmetic wraps. The loop asks whether any lane is alive every
-    :data:`EXIT_CHECK_EVERY` bounces; the result does not depend on it."""
-    _check_supported(cfg, differentiable)
+    ``reflect_kill`` (None: ``roughness_fresnel and not differentiable``)
+    zeroes a below-surface reflection; the differentiable estimators fold
+    it back above, since the kill is a step in the geometry whose gradient
+    is 0 almost everywhere. ``sample_idx``: the sample's uint32 index (an
+    int, or an (N,) integer tensor of per-lane indices); the bounce's RNG
+    counter is ``sample_idx * cfg.max_raytrace + i`` modulo 2**32, as the
+    reference's uint32 arithmetic wraps. The loop asks whether any lane is
+    alive every :data:`EXIT_CHECK_EVERY` bounces; the result does not
+    depend on it."""
+    _check_supported(cfg)
     if reflect_kill is None:
-        reflect_kill = roughness_fresnel
+        reflect_kill = roughness_fresnel and not differentiable
+    if differentiable == "replay":
+        from .replay import trace_replay
+        color = trace_replay(scene, env, rays, pixel_id, sample_idx, cfg,
+                             diffuse_only=diffuse_only,
+                             roughness_fresnel=roughness_fresnel,
+                             restart_at_hit=restart_at_hit,
+                             reflect_kill=reflect_kill)
+        return TraceResult(color, torch.zeros_like(rays.depth))
     dtype = rays.color.dtype
     max_bounce = cfg.max_raytrace
-    if isinstance(sample_idx, torch.Tensor):
-        base = (sample_idx.to(torch.int64) & _MASK) * max_bounce
-    else:
-        base = (int(sample_idx) & _MASK) * max_bounce
+    base = _sample_base(sample_idx, max_bounce)
 
     origin, direction, color = rays.origin, rays.direction, rays.color
     alive = torch.ones(origin.shape[:1], dtype=torch.bool,
@@ -558,7 +596,7 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
         # banked NEE radiance, and the weight on the next sky lookup
         radiance = torch.zeros_like(color)
         sky_w = torch.ones_like(origin[:, 0])
-    with torch.no_grad():
+    with contextlib.nullcontext() if differentiable else torch.no_grad():
         i = 0
         while i < max_bounce:
             counter = (base + i) & _MASK
@@ -576,7 +614,9 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
                 alive = alive & ~die
             # (DEPTH_LINEAR roulette belongs to the wavefront.)
 
-            res = marchlib.march(scene, origin, direction, cfg, active=alive)
+            res = marchlib.march(scene, origin, direction, cfg,
+                                 differentiable=bool(differentiable),
+                                 active=alive)
 
             u4 = rnglib.uniform4(pixel_id, counter, _S_SHADE, cfg.seed,
                                  dtype)
@@ -665,8 +705,9 @@ def render_image(scene: Scene, env: Environment, cam: Camera,
     (sample indices ``sample_offset + s`` modulo 2**32), tonemapped unless
     ``tonemapped=False``. Each sample draws its camera ray through
     ``rng.sampler4(cfg.low_discrepancy)``. Runs on the scene's device.
-    Returns (H, W, 3), row 0 at the top."""
-    _check_supported(cfg, differentiable)
+    ``differentiable`` as in :func:`megakernel_trace`. Returns (H, W, 3),
+    row 0 at the top."""
+    _check_supported(cfg)
     n = cfg.num_pixels
     spp = spp if spp is not None else cfg.samples_per_pixel
     dev = scene.device
@@ -681,6 +722,7 @@ def render_image(scene: Scene, env: Environment, cam: Camera,
         rays = cameralib.get_ray(cam, uv, u_cam[2], u_cam[3])
         out = megakernel_trace(scene, env, rays, pixel_id, idx, cfg,
                                diffuse_only=diffuse_only,
+                               differentiable=differentiable,
                                roughness_fresnel=roughness_fresnel,
                                restart_at_hit=restart_at_hit,
                                reflect_kill=reflect_kill)

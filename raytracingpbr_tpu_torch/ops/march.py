@@ -15,8 +15,12 @@ matches within the bar of :func:`assert_march_close`.
 Dispatch follows the tensors: ``march_resumable`` and ``march`` send CUDA
 tensors to the kernel and CPU tensors to the plain version.
 
-Gradients (``_hit_t``, the implicit hit-point VJP) are not ported yet:
-``march(differentiable=True)`` raises.
+Gradients: the march loop is detached (autograd through hundreds of trips
+is hopeless), and ``march(differentiable=True)`` re-attaches them at the
+hit point through the implicit function theorem: ``dt*/dtheta =
+-(df/dtheta) / (df/dt)`` with ``df/dt = grad_p f . direction`` (``_hit_t``,
+a ``torch.autograd.Function``). They reach the buffers the SDF reads and
+the ray's origin and direction, whichever march found the hit.
 """
 from __future__ import annotations
 
@@ -244,24 +248,83 @@ def march_resumable(scene: Scene, origin: torch.Tensor,
     ``(t, w, s, d)`` tuple of (N,) tensors from a prior call. Per lane, the
     trips of chained calls are bit-identical to one uninterrupted march.
     CUDA tensors go through the hand-written kernel, CPU tensors through
-    the plain version. Forward only."""
-    if origin.is_cuda:
-        return ResumableResult(*march_kernel.march_resumable_cuda(
-            scene, origin, direction, cfg, active=active, init=init))
-    return march_resumable_plain(scene, origin, direction, cfg, active, init)
+    the plain version. Detached: callers attach :func:`_hit_t` where a
+    segment completes."""
+    with torch.no_grad():
+        if origin.is_cuda:
+            return ResumableResult(*march_kernel.march_resumable_cuda(
+                scene, origin, direction, cfg, active=active, init=init))
+        return march_resumable_plain(scene, origin, direction, cfg, active,
+                                     init)
+
+
+class _HitT(torch.autograd.Function):
+    """Identity on ``t`` with implicit-function gradients at the hit point
+    (the JAX package's ``custom_vjp``). The buffers the signed distance
+    reads come in as the flat tensor arguments ``params``
+    (``scene.sdf_params``' order), since only tensor arguments get
+    gradients; ``scene`` gives the metadata to rebuild it in the backward.
+    The materials are left out: they take no gradient here, and passing
+    them would record this node (and the second-order normal after it)
+    whenever only a material requires grad."""
+
+    @staticmethod
+    def forward(ctx, scene, origin, direction, t, index, hit, *params):
+        ctx.scene = scene
+        ctx.save_for_backward(origin, direction, t, index, hit, *params)
+        return t.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        origin, direction, t, index, hit, *params = ctx.saved_tensors
+        want = ctx.needs_input_grad[6:]
+        with torch.enable_grad():
+            leaves = [v.detach().requires_grad_(w)
+                      for v, w in zip(params, want)]
+            p = (origin + t[:, None] * direction).detach().requires_grad_(True)
+            f = scenelib.sd_object(
+                scenelib.with_sdf_params(ctx.scene, leaves), index, p)
+            (grad_p,) = torch.autograd.grad(f.sum(), p, retain_graph=any(want))
+        dfdt = dot(grad_p, direction)
+        # a valid hit has |df/dt| bounded away from 0 unless it grazes
+        safe = torch.where(torch.abs(dfdt) > 1e-6, dfdt,
+                           torch.sign(dfdt) * 1e-6 + 1e-12)
+        coeff = torch.where(hit, -g / safe, torch.zeros_like(g))
+        d_params = [None] * len(params)
+        if any(want):
+            sel = [v for v, w in zip(leaves, want) if w]
+            got = iter(torch.autograd.grad(f, sel, grad_outputs=coeff,
+                                           allow_unused=True))
+            d_params = [next(got) if w else None for w in want]
+        d_origin = coeff[:, None] * grad_p
+        d_direction = (coeff * t)[:, None] * grad_p
+        return (None, d_origin, d_direction, None, None, None, *d_params)
+
+
+def _hit_t(scene: Scene, origin, direction, t, index, hit) -> torch.Tensor:
+    """``t`` with gradients to the SDF's buffers, ``origin`` and
+    ``direction`` through the implicit hit-point relation: for a hit lane
+    ``sdf(theta, origin + t* direction) = 0``, so ``dt*/dtheta =
+    -(df/dtheta) / (df/dt)`` with ``df/dt = grad_p f . direction`` (guarded
+    to ``sign * 1e-6 + 1e-12`` where ``|df/dt| <= 1e-6``). Miss lanes get
+    zero gradient, and ``t`` itself none."""
+    return _HitT.apply(scene, origin, direction, t, index, hit,
+                       *scenelib.sdf_params(scene))
 
 
 def march(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
-          cfg: RenderConfig, differentiable: bool = False,
+          cfg: RenderConfig, differentiable: bool = True,
           active: Optional[torch.Tensor] = None) -> MarchResult:
     """Sphere-trace a flat ray batch with the full ``cfg.max_raymarch``
     budget. ``active``: optional (N,) bool gate; inactive lanes' outputs are
-    their inits and must be ignored."""
-    if differentiable:
-        raise NotImplementedError(
-            "march gradients (_hit_t) are not ported yet")
+    their inits and must be ignored. When ``differentiable`` (the default,
+    as in the reference) and autograd records, ``t`` and the position carry
+    :func:`_hit_t`'s gradients; the loop itself is detached either way."""
     rr = march_resumable(scene, origin, direction, cfg, active=active)
     iters = (torch.amax(rr.fin) if rr.fin.numel()
              else torch.zeros((), dtype=torch.int32, device=origin.device))
-    return MarchResult(rr.t, origin + rr.t[:, None] * direction, rr.index,
+    t = rr.t
+    if differentiable and torch.is_grad_enabled():
+        t = _hit_t(scene, origin, direction, t, rr.index, rr.hit)
+    return MarchResult(t, origin + t[:, None] * direction, rr.index,
                        rr.hit, iters)

@@ -45,6 +45,9 @@ class ObjectSpec:
 _BUFFERS = ("position", "rotation", "scale", "matrix", "local_offset",
             "albedo", "emission", "roughness", "metallic", "transmission",
             "ior")
+# the buffers the signed distance reads (``rotation`` only through a
+# re-baked ``matrix``)
+_SDF_BUFFERS = ("position", "scale", "matrix", "local_offset")
 
 
 class Scene(nn.Module):
@@ -54,7 +57,8 @@ class Scene(nn.Module):
     permutation)."""
 
     def __init__(self, shape_types, type_splits, bucket_types, box_round,
-                 rot_perm, bunny: Optional[BunnyMLP] = None, **tensors):
+                 rot_perm, bunny: Optional[BunnyMLP] = None,
+                 type_ids: Optional[torch.Tensor] = None, **tensors):
         super().__init__()
         if SHAPE.BUNNY in shape_types and bunny is None:
             raise ValueError("a scene with a BUNNY object needs the MLP "
@@ -71,9 +75,11 @@ class Scene(nn.Module):
             for name, v in zip(BunnyMLP._fields, bunny):
                 self.register_buffer("bunny_" + name, v)
         # the shape types as a device array, for the CUDA march kernel
-        self.register_buffer("type_ids", torch.tensor(
-            self.shape_types, dtype=torch.int32,
-            device=tensors["position"].device))
+        # (``replace`` hands its own on: a new one is a copy to the card)
+        if type_ids is None:
+            type_ids = torch.tensor(self.shape_types, dtype=torch.int32,
+                                    device=tensors["position"].device)
+        self.register_buffer("type_ids", type_ids)
 
     @property
     def num_objects(self) -> int:
@@ -97,9 +103,53 @@ class Scene(nn.Module):
                     bucket_types=self.bucket_types, box_round=self.box_round,
                     rot_perm=self.rot_perm, bunny=self.bunny)
         meta.update({k: kw.pop(k) for k in list(kw) if k in meta})
+        if meta["shape_types"] == self.shape_types:
+            meta["type_ids"] = self.type_ids
         tensors = {name: getattr(self, name) for name in _BUFFERS}
         tensors.update(kw)
         return Scene(**meta, **tensors)
+
+
+def param_names(scene: Scene) -> Tuple[str, ...]:
+    """The names of the scene's float buffers, in a fixed order: the
+    objects' (``_BUFFERS``), then the bunny's weights (``bunny_*``) when it
+    has them. These are what gradients reach and an optimizer updates."""
+    bunny = (tuple("bunny_" + k for k in BunnyMLP._fields)
+             if scene.has_bunny else ())
+    return _BUFFERS + bunny
+
+
+def params(scene: Scene) -> Tuple[torch.Tensor, ...]:
+    """The scene's float buffers in :func:`param_names`' order."""
+    return tuple(getattr(scene, k) for k in param_names(scene))
+
+
+def with_params(scene: Scene, tensors: Sequence[torch.Tensor]) -> Scene:
+    """A new Scene with the buffers of :func:`params` replaced, in that
+    order, by ``tensors`` (the same metadata, ``rot_perm`` included)."""
+    names = param_names(scene)
+    kw = dict(zip(names[:len(_BUFFERS)], tensors[:len(_BUFFERS)]))
+    if scene.has_bunny:
+        kw["bunny"] = BunnyMLP(*tensors[len(_BUFFERS):])
+    return scene.replace(**kw)
+
+
+def sdf_params(scene: Scene) -> Tuple[torch.Tensor, ...]:
+    """The float buffers that the signed distance reads: the objects'
+    transforms and scales (``_SDF_BUFFERS``), then the bunny's weights when
+    it has them. No gradient reaches the hit point or the normal from any
+    other buffer."""
+    return (tuple(getattr(scene, k) for k in _SDF_BUFFERS)
+            + tuple(scene.bunny or ()))
+
+
+def with_sdf_params(scene: Scene, tensors: Sequence[torch.Tensor]) -> Scene:
+    """A new Scene with the buffers of :func:`sdf_params` replaced, in that
+    order, by ``tensors``."""
+    kw = dict(zip(_SDF_BUFFERS, tensors[:len(_SDF_BUFFERS)]))
+    if scene.has_bunny:
+        kw["bunny"] = BunnyMLP(*tensors[len(_SDF_BUFFERS):])
+    return scene.replace(**kw)
 
 
 def _snap_and_classify(mats: np.ndarray, tol: float = 1e-6):
@@ -292,11 +342,16 @@ class Materials(NamedTuple):
 def materials_at(scene: Scene, idx: torch.Tensor) -> Materials:
     """All six material parameters of object ``idx`` per lane: one gather
     from the packed (n_obj, 10) table (the TPU's one-hot matmul is a GPU
-    gather)."""
+    gather). ``index_select``, not advanced indexing: the same values, and
+    its backward is an ``index_add_`` (atomic adds on the card), where the
+    advanced index's sorts the lanes and sums each object's hundreds of
+    thousands of duplicates in one warp (on the H100 over 90% of a
+    gradient step, PERF.md)."""
     table = torch.cat([scene.albedo, scene.emission,
                        scene.roughness[:, None], scene.metallic[:, None],
                        scene.transmission[:, None], scene.ior[:, None]], -1)
-    m = table[idx.to(torch.int64)]
+    m = table.index_select(0, idx.reshape(-1).to(torch.int64)).reshape(
+        idx.shape + (10,))
     return Materials(m[..., 0:3], m[..., 3:6], m[..., 6], m[..., 7],
                      m[..., 8], m[..., 9])
 
@@ -304,10 +359,25 @@ def materials_at(scene: Scene, idx: torch.Tensor) -> Materials:
 def calc_normal(scene: Scene, idx: torch.Tensor,
                 p: torch.Tensor) -> torch.Tensor:
     """Analytic surface normal: normalized gradient of ``sd_object`` with
-    respect to ``p``, through autograd."""
-    with torch.enable_grad():
-        q = p.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(sd_object(scene, idx, q).sum(), q)
+    respect to ``p``, through autograd.
+
+    Where autograd records (grad mode on, and ``p`` or a buffer the SDF
+    reads requires grad) the gradient is taken with ``create_graph=True``
+    at the attached ``p``, so the normal is differentiable in ``p`` and in
+    the geometry, as ``jax.grad``'s normal is (second order through the
+    SDF). Otherwise ``p`` is detached and the gradient is first order: the
+    forward render's numbers."""
+    sdf_reads = (scene.position, scene.scale, scene.matrix,
+                 scene.local_offset) + tuple(scene.bunny or ())
+    if torch.is_grad_enabled() and (
+            p.requires_grad or any(t.requires_grad for t in sdf_reads)):
+        q = p if p.requires_grad else p.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(sd_object(scene, idx, q).sum(), q,
+                                   create_graph=True)
+    else:
+        with torch.enable_grad():
+            q = p.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(sd_object(scene, idx, q).sum(), q)
     return g / torch.linalg.vector_norm(g, dim=-1, keepdim=True)
 
 

@@ -591,3 +591,106 @@ def test_k1d_mlp_permuted_points_bit_for_bit(cuda_device):
     padded = torch.cat([p[:5], torch.zeros((27, 3), device=cuda_device)])
     assert torch.equal(march_kernel.bunny_mlp_mxu(scene, padded)[:5],
                        got[:5])
+
+
+# --- the gradient paths on the card -----------------------------------------
+
+
+def _grads(scene, env, cam, cfg, mode, fields=("albedo", "emission")):
+    """The mean image's gradients in ``fields`` through ``render_pixels``
+    (spp 1), and the march launches that took."""
+    from raytracingpbr_tpu_torch.parallel import train as ptrain
+    leaves = {k: getattr(scene, k).clone().requires_grad_(True)
+              for k in fields}
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64,
+                       device=scene.device)
+    march_kernel.reset_launches()
+    img = ptrain.render_pixels(scene.replace(**leaves), env, cam, pid, cfg,
+                               spp=1, differentiable=mode)
+    grads = torch.autograd.grad(img.mean(), list(leaves.values()))
+    return grads, dict(march_kernel.LAUNCHES), dict(
+        march_kernel.BOUND_LAUNCHES)
+
+
+def test_gradient_paths_march_through_the_kernels(cuda_device):
+    """Scan-AD and path replay handed CUDA tensors march through K1a (one
+    launch a bounce; replay's backward re-marches without the checkpoint)
+    and no other kernel, and replay equals scan-AD on the card at
+    ``tests/test_replay.py``'s bar (rtol 2e-4, atol 2e-6 max)."""
+    scene, env, cam = (cornell.full_scene(cuda_device),
+                       cornell.sky(cuda_device),
+                       cornell.full_camera(cuda_device))
+    cfg = cornell.full_config().replace(resolution=(32, 32), max_raytrace=6)
+    scan, l_scan, _ = _grads(scene, env, cam, cfg, True)
+    rep, l_rep, _ = _grads(scene, env, cam, cfg, "replay")
+    off, l_off, _ = _grads(scene, env, cam,
+                           cfg.replace(replay_march_checkpoint=False),
+                           "replay")
+    for launches in (l_scan, l_rep, l_off):
+        assert launches["k1a"] > 0
+        assert not any(v for k, v in launches.items() if k != "k1a")
+    # the backward without the checkpoint marches every bounce again
+    assert l_off["k1a"] == 2 * l_rep["k1a"]
+    for a, b, c in zip(scan, rep, off):
+        assert float(a.abs().max()) > 0
+        torch.testing.assert_close(b, a, rtol=2e-4,
+                                   atol=2e-6 * float(a.abs().max()))
+        torch.testing.assert_close(c, b, rtol=1e-5,
+                                   atol=1e-7 * float(b.abs().max()))
+
+
+def test_replay_nee_shadow_rays_through_k1b(cuda_device):
+    """Replay with NEE on the card: the bounces through K1a, the shadow
+    rays through K1b's escape-bound instance."""
+    from raytracingpbr_tpu_torch.ops import ibl
+    img = np.full((64, 32, 3), 0.05, np.float32)
+    img[40:44, 24:28] = 25.0
+    env = ibl.with_env_sampler(ibl.hdr_environment(img, prebake=False,
+                                                   device=cuda_device))
+    scene, cam = (cornell.full_scene(cuda_device),
+                  cornell.full_camera(cuda_device))
+    cfg = cornell.full_config().replace(resolution=(32, 32), max_raytrace=8,
+                                        env_sampling=True)
+    (g_alb, _), launches, bound = _grads(scene, env, cam, cfg, "replay")
+    assert launches["k1a"] > 0 and launches["k1b"] > 0
+    assert bound["k1b"] == launches["k1b"] and bound["k1a"] == 0
+    assert bool(torch.isfinite(g_alb).all())
+    assert float(g_alb.abs().max()) > 0
+
+
+def test_float64_refused_on_the_card(cuda_device):
+    """The kernels are f32: a float64 ray or scene on the card raises,
+    and is never cast."""
+    scene = cornell.full_scene(cuda_device)
+    o, d = primaries(cornell.full_config().replace(resolution=(8, 8)),
+                     cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        march_kernel.march_resumable_cuda(scene, o.double(), d.double(),
+                                          cornell.full_config())
+    scene64 = scene.replace(**{k: getattr(scene, k).double()
+                               for k in _BUFFERS})
+    with pytest.raises(ValueError, match="float32"):
+        march_kernel.march_resumable_cuda(scene64, o, d,
+                                          cornell.full_config())
+
+
+def test_train_step_matrix_then_kernel_equals_plain(cuda_device):
+    """A train step that moves the matrix on the card drops the
+    permutation records, and K1a on the updated scene is bit-equal to the
+    plain march (the kernel reads no stale permutation)."""
+    from raytracingpbr_tpu_torch.ops import ibl
+    from raytracingpbr_tpu_torch.parallel import train as ptrain
+    scene, cam = (cornell.full_scene(cuda_device),
+                  cornell.full_camera(cuda_device))
+    cfg = cornell.full_config().replace(resolution=(16, 16), max_raytrace=3)
+    step = ptrain.make_sharded_train_step(
+        ibl.gradient_sky(device=cuda_device), cam, cfg,
+        param_filter=ptrain.param_mask({"matrix"}))
+    ts = ptrain.make_train_state(scene, ptrain.adam(0.05))
+    ts, loss = step(ts, torch.zeros((cfg.num_pixels, 3),
+                                    device=cuda_device))
+    assert bool(torch.isfinite(loss))
+    assert not torch.equal(ts.scene.matrix, scene.matrix)
+    assert all(p is None for p in ts.scene.rot_perm)
+    o, d = primaries(cornell.full_config(), cuda_device)
+    assert_bit_equal(*both(ts.scene, o, d, cornell.full_config()))

@@ -213,9 +213,13 @@ def test_kernel_wrapper_refuses_cpu_and_other_variants():
                                           gcfg.replace(bunny_mxu=True))
     assert march_kernel.variant(scene, tcornell.full_config()) == "k1a"
     assert march_kernel.variant(scene, tcornell.v3_config()) == "k1b"
-    with pytest.raises(NotImplementedError):
-        tmarch.march(scene, tt(o), tt(d), tcornell.full_config(),
-                     differentiable=True)
+    # march(differentiable=True), the reference's default, no longer
+    # raises: on CPU tensors the plain march's t, with the hit-point
+    # gradient attached where autograd records
+    cfg = tcornell.full_config()
+    got = tmarch.march(scene, tt(o), tt(d), cfg, differentiable=True)
+    plain = tmarch.march_resumable(scene, tt(o), tt(d), cfg)
+    assert torch.equal(got.t, plain.t) and torch.equal(got.hit, plain.hit)
 
 
 def test_pack_scene_layout():

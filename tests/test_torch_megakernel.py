@@ -12,8 +12,10 @@
   counter ``sample_idx * max_raytrace + i`` past 2**32 included;
 * asking whether a lane is alive every bounce or every k bounces gives the
   same output bit for bit;
-* ``cfg.env_sampling`` without a baked table raises JAX's ValueError, and
-  the modes not ported yet raise.
+* ``cfg.env_sampling`` without a baked table raises JAX's ValueError;
+  the gradient modes give the forward's numbers, ``cfg.reprojection``
+  raises, and the ``march`` and ``reflect_kill`` defaults are the
+  reference's.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -194,15 +196,66 @@ def test_early_exit_check_every_k_bit_identical(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["differentiable", "replay"])
 def test_unported_modes_raise(mode):
-    cfg = tcornell.minimal_config().replace(resolution=(4, 4))
+    """The gradient modes, once unported, now run: ``render_image`` and
+    ``megakernel_trace`` with ``differentiable`` True (scan-AD) or
+    ``"replay"`` give the forward render's numbers bit for bit at a pinned
+    ``reflect_kill``. What is still unported, ``cfg.reprojection``, raises
+    naming ROADMAP item 14."""
+    cfg = tcornell.full_config().replace(resolution=(6, 6), max_raymarch=96,
+                                         max_raytrace=6)
     kw = {"differentiable": True if mode == "differentiable" else "replay"}
-    args = (tcornell.minimal_scene(CPU), tcornell.sky(CPU))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tinteg.render_image(*args, tcornell.minimal_camera(CPU), cfg, **kw)
-    from raytracingpbr_tpu_torch.core.types import make_rays
-    rays = make_rays(16, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tinteg.megakernel_trace(*args, rays, torch.arange(16), 0, cfg, **kw)
+    args = (tcornell.full_scene(CPU), tcornell.sky(CPU))
+    cam = tcornell.full_camera(CPU)
+    ref = tinteg.render_image(*args, cam, cfg, reflect_kill=False,
+                              tonemapped=False)
+    got = tinteg.render_image(*args, cam, cfg, reflect_kill=False,
+                              tonemapped=False, **kw)
+    assert torch.equal(got, ref)
+    pid = torch.arange(cfg.num_pixels)
+    u = trng.uniform4(pid, 0, 1, cfg.seed)
+    from raytracingpbr_tpu_torch.ops import camera as tcamera
+    rays = tcamera.get_ray(cam, tcamera.pixel_uv(pid, cfg.width, cfg.height,
+                                                 u[0], u[1]), u[2], u[3])
+    ref = tinteg.megakernel_trace(*args, rays, pid, 0, cfg,
+                                  reflect_kill=False)
+    got = tinteg.megakernel_trace(*args, rays, pid, 0, cfg,
+                                  reflect_kill=False, **kw)
+    assert torch.equal(got.color, ref.color)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tinteg.render_image(*args, cam, cfg.replace(reprojection=True), **kw)
+
+
+def test_march_and_reflect_kill_defaults_match_jax():
+    """The repaired defaults: ``march(differentiable=...)`` defaults to
+    True as the reference's does, and ``megakernel_trace``'s
+    ``reflect_kill`` to ``roughness_fresnel and not differentiable``: the
+    scan-AD forward folds a below-surface reflection back above, so its
+    colours follow JAX's scan-AD forward (``differentiable=True``) and not
+    the killing forward render, from which they differ on some lanes."""
+    import inspect
+
+    from raytracingpbr_tpu.ops import march as jmarch
+    from raytracingpbr_tpu_torch.ops import march as tmarch
+    default = lambda f: inspect.signature(f).parameters[
+        "differentiable"].default
+    assert default(tmarch.march) is default(jmarch.march) is True
+    jcfg = jcornell.full_config().replace(**FULL)
+    jscene, jenv = jcornell.full_scene(), jcornell.sky()
+    pid = jnp.arange(jcfg.num_pixels, dtype=jnp.uint32)
+    u = jrng.uniform4(pid, 0, 1, jcfg.seed)
+    jrays = jcamera.get_ray(jcornell.full_camera(), jcamera.pixel_uv(
+        pid, jcfg.width, jcfg.height, u[0], u[1]), u[2], u[3])
+    want = jinteg.megakernel_trace(jscene, jenv, jrays, pid, 0, jcfg,
+                                   differentiable=True).color
+    args = (tcornell.full_scene(CPU), tcornell.sky(CPU),
+            convert.rays_from_jax(jrays, CPU), torch.arange(jcfg.num_pixels),
+            0, convert.config_from_jax(jcfg))
+    got = tinteg.megakernel_trace(*args, differentiable=True).color
+    killing = tinteg.megakernel_trace(*args).color
+    assert_image_bar(nn(got), np.asarray(want))
+    assert not torch.equal(got, killing)
+    assert torch.equal(got, tinteg.megakernel_trace(
+        *args, reflect_kill=False).color)
 
 
 def test_env_sampling_requires_baked_table():
