@@ -171,16 +171,63 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     matrix at 64x64 (the permutation records dropped), after which K1a on
     the updated scene is bit-equal too.
 
+9a. the phased march (``march.march_phased``, ``cfg.march_compaction``)
+    against the single call on the frames' own calls: the Cornell
+    megakernel's bounce 0 (480x480, 512 trips in 5 phases, K1a, recorded
+    in 3g), the engine and tokyo primaries over 512 trips (K1b), the glass
+    megakernel's bounces 0 and 1 (1920x1080, 2048 trips in 7 phases,
+    recorded in 3i) with K1c and K1d, whole and on every 8th lane. On each:
+    one launch a phase, the eight outputs bit-equal to the single call
+    (K1d held to the march bar, and said whether bit-equal); ms a call
+    each way in turns and back to back; lane-trips needed and executed
+    each way; host syncs a phased call (``set_sync_debug_mode``); the
+    bound and its share (the glass calls on their every-8th-lane subset,
+    whose MLP support 3j counted).
+9b. the megakernel passes with ``march_compaction`` off and on in turns
+    off, on, on, off on ``bench.py``'s protocol: glass 1920x1080 with K1c,
+    then K1d (7 launches a bounce phased), Cornell full 480x480 (5):
+    ms/pass, Msamples/s, bounces, host syncs a phased pass; the image at
+    sample 0 bit-identical each way (K1d: >= 35 dB, and said whether
+    bit-identical).
+9c. adaptive frame compaction: the Cornell main path at 480x480 with
+    ``adaptive_sampling`` at the noise threshold ADAPTIVE_THRESHOLD,
+    ADAPTIVE_FRAMES frames through ``render_frame_tile`` compacted every
+    ADAPTIVE_EVERY frames (``ops/compact``) against as many uncompacted,
+    in turns off, on, on, off: the scattered raster and the uncompacted
+    state bit-identical; a compaction moved lanes, and at least
+    10% of pixels were inactive at the last one; ms/frame each way, the
+    compactions' ms, the inactive share per frame.
+9d. reprojection: the interactive app's session (``apps.interactive``) on
+    the engine scene at 768x432 through a scripted list of moves and
+    rotations with ``--reproject`` and without, in turns: ms a frame, the
+    frames that reprojected, K1b's launches; ``reproject``'s own ms (CUDA
+    events); ``reproject`` on the card against the CPU on the same state
+    (rtol 1e-5 on at least 99.9% of pixels: the card's atomic adds
+    reorder a pixel's sums); ``tests/test_reproject.py``'s
+    reprojection-beats-zero-reset property at full width, on its minimal
+    Cornell box at 512x512 in the mean radiance error and on the engine
+    frames at 768x432 in the tonemapped image and the median pixel's
+    radiance error (the mean radiance error printed beside).
+9e. the progressive daemon in a subprocess, through ``progressive.run``
+    as ``--scene cornell --adaptive --compact-every 4 --serve 0`` calls it
+    but with the noise threshold at 0.15, for SERVE_MINUTES; /frame.png
+    and /stats fetched over localhost while it runs; rc 0; a compaction
+    moved lanes (the metrics' ``lanes_moved``); the saved ``final.png``
+    equal to the raster of the saved checkpoint's pixels.
+
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON record (K1a and K1b with their mean
 call inside their frames, a call alone and back to back; K1c and K1d with
 theirs; K1a, K1c and K1d with their launches a megakernel pass and their
 3j calls' time, bound and share, K1b with its launches in the goldens;
 K1b, K1c and K1d with their 7d shadow calls' time, bound, share and
-launches; K1a and K1b with their launches a step on the gradient paths),
+launches; K1a and K1b with their launches a step on the gradient paths;
+each with its 9a phased calls, its 9b phased passes and its launches in
+9c-9d),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no jax.
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -195,15 +242,19 @@ import torch
 
 from raytracingpbr_tpu_torch import (HitCriterion, OmegaPolicy, RenderConfig,
                                      Roulette, make_camera)
-from raytracingpbr_tpu_torch.apps import progressive
+from raytracingpbr_tpu_torch.apps import interactive, progressive
 from raytracingpbr_tpu_torch.core import rng
 from raytracingpbr_tpu_torch.core.types import make_frame_state
 from raytracingpbr_tpu_torch.io import checkpoint as ckpt
+from raytracingpbr_tpu_torch.io import image as imageio
 from raytracingpbr_tpu_torch.io.image import read_png
 from raytracingpbr_tpu_torch.kernels import build, fma_kernel, march_kernel
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.models.goldens import GOLDENS, render_golden
 from raytracingpbr_tpu_torch.ops import camera, ibl, integrator, march
+from raytracingpbr_tpu_torch.ops import compact as compactlib
+from raytracingpbr_tpu_torch.ops import post as postlib
+from raytracingpbr_tpu_torch.ops import reproject as reprojectlib
 from raytracingpbr_tpu_torch.ops import scene as scenelib
 from raytracingpbr_tpu_torch.ops.integrator import (render_frame,
                                                     render_image,
@@ -253,6 +304,18 @@ GRAD_STEPS = 4
 RECOVERY_RES = (16, 16)
 RECOVERY_STEPS = 30
 TRAIN_TIMED_STEPS = 5
+# compaction and reprojection (9a-9e): the phased and single calls' timed
+# calls each way; the adaptive frames, compacted every ADAPTIVE_EVERY at
+# the noise threshold (about 90% of the Cornell pixels fall below it by
+# the sixth frame, so later compactions move lanes); the interactive
+# app's script (moves and rotations); the preview daemon's run
+PHASED_REPS = 10
+ADAPTIVE_FRAMES = 16
+ADAPTIVE_EVERY = 4
+ADAPTIVE_THRESHOLD = 0.15
+REPROJECT_SCRIPT = ("w", "w", "d", "l", "u", "s", "r", "a", "n", "w", "d",
+                    "l")
+SERVE_MINUTES = 0.15
 
 
 def log(*a):
@@ -1004,7 +1067,7 @@ def pooled_calls(sets, tag="[3e]", names=None):
     out = {}
     for label, scene, calls, mxu in sets:
         tot = dict(ms=0.0, bound_ms=0.0, needed=0, slots=0, support=0,
-                   mlp=0, warp_mlp=0, err=0.0)
+                   mlp=0, warp_mlp=0, err=0.0, supports=[])
         for j, (o, d, act, init, c) in enumerate(calls):
             cfg = c.replace(bunny_mxu=mxu)
             kind = march_kernel.variant(scene, cfg)
@@ -1022,6 +1085,7 @@ def pooled_calls(sets, tag="[3e]", names=None):
             support, warp_mlp = speedlight.support_lane_trips(
                 scene, o, d, cfg, act, init)
             work = speedlight.mlp_work(support, mlp)
+            tot["supports"].append(support)
             b = speedlight.march_bound(scene, cfg, k.fin, support, act, init)
             needed = b["lane_iters_needed"]
             log(f"{tag} {label} call {j if names is None else names[j]}: "
@@ -1156,7 +1220,7 @@ def host_syncs(fn):
 
 
 def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
-                      warm=True, **kw):
+                      warm=True, per_bounce=1, **kw):
     """``bench.py``'s megakernel protocol: ``render_image(spp=1,
     tonemapped=False)`` at sample_offset ``first - 1`` as warm-up (unless
     ``warm`` is False), then ``passes`` timed passes at sample offsets
@@ -1164,7 +1228,9 @@ def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
     kernel may launch, one launch a bounce (``kind`` may be a tuple: the
     bounce's kernel first, then the shadow rays', each of which must
     launch); the shadow rays' launches are the escape-bound ones, which
-    run exactly when ``cfg.env_sampling`` is on. Returns ms/pass,
+    run exactly when ``cfg.env_sampling`` is on. ``per_bounce``: the
+    bounce kernel's launches a bounce (the phases of a phased march; they
+    must divide its launches). Returns ms/pass,
     Msamples/s, bounces the loop ran a pass, the launches, shadow launches
     a pass, peak GiB and the last image."""
     kinds = (kind,) if isinstance(kind, str) else tuple(kind)
@@ -1194,10 +1260,14 @@ def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
                              f"env_sampling={cfg.env_sampling}")
     if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0):
         raise AssertionError(f"{label}: the image is not finite and positive")
-    # a bounce launches kinds[0] once; the shadow rays' launches are the
-    # escape-bound ones
+    # a bounce launches kinds[0] per_bounce times; the shadow rays'
+    # launches are the escape-bound ones
+    bounce_launches = launches[kinds[0]] - bound[kinds[0]]
+    if bounce_launches % per_bounce:
+        raise AssertionError(f"{label}: {bounce_launches} bounce launches, "
+                             f"not a multiple of {per_bounce} a bounce")
     out = dict(ms=dt * 1e3, msps=cfg.num_pixels / dt / 1e6,
-               bounces=(launches[kinds[0]] - bound[kinds[0]]) / passes,
+               bounces=bounce_launches / per_bounce / passes,
                launches=launches[kinds[0]],
                all_launches={k: launches[k] for k in kinds},
                shadow_per_pass=shadow / passes,
@@ -2255,6 +2325,587 @@ def gradient_phases(dev):
                 err_a=err("k1a"), err_b=err("k1b"))
 
 
+# --- compaction and reprojection ---------------------------------------------
+
+
+def to_cpu(x):
+    """A FrameState or Camera (a dataclass of tensors, rays nested) on the
+    CPU."""
+    return type(x)(**{k: to_cpu(v) if dataclasses.is_dataclass(v)
+                      else v.cpu() for k, v in vars(x).items()})
+
+
+def phased_call(label, scene, o, d, act, cfg, support=None):
+    """9a: one march call over its whole budget, through the phased march
+    (``march.march_phased``) and the single-shot kernel. The phased march
+    launches once a phase and makes no host sync; its eight outputs equal
+    the single call's bit for bit (K1d: held to the march bar, and said
+    whether bit-equal). Both timed in turns (a call, CUDA events) and back
+    to back behind a sleep; lane-trips executed each way
+    (``speedlight.phased_executed`` against warps of 32 fixed lanes for
+    K1a/K1b, the kernel's counts summed over the phases for K1c/K1d); with
+    ``support`` (0 for the analytic kernels), the bound and its share."""
+    phases = march.resolve_phases(cfg)
+    kind = march_kernel.variant(scene, cfg)
+    single = lambda: march_kernel.march_resumable_cuda(scene, o, d, cfg,
+                                                       active=act)
+    phased = lambda: march.march_phased(scene, o, d, cfg, active=act)
+    march_kernel.reset_launches()
+    p = phased()
+    torch.cuda.synchronize()
+    launches = dict(march_kernel.LAUNCHES)
+    if launches[kind] != len(phases) or sum(launches.values()) != len(
+            phases):
+        raise AssertionError(f"[9a] {label}: {launches} launches for "
+                             f"{len(phases)} phases of {kind}")
+    s = march.ResumableResult(*single())
+    differ = [n for n, a, b in zip(FIELDS, p, s) if not torch.equal(a, b)]
+    err = 0.0
+    if kind == "k1d":
+        err = march.assert_march_close(scene, o, d, p, s, cfg)[0]
+        note = ("bit-equal" if not differ else
+                f"within the march bar, not bit-equal ({differ})")
+    elif differ:
+        raise AssertionError(f"[9a] {label}: the phased march differs from "
+                             f"the single call in {differ}")
+    else:
+        note = "bit-equal"
+    ms_p, ms_s, turns = in_turns(phased, single, PHASED_REPS, PHASED_REPS)
+    dev_p = device_ms(phased, PHASED_REPS)
+    dev_s = device_ms(single, PHASED_REPS)
+    syncs = host_syncs(phased)
+    needed = int(s.fin.to(torch.int64).sum())
+    if kind in ("k1c", "k1d"):
+        ex_s = speedlight.executed_counts(scene, o, d, cfg, act)[0]
+        ex_p = speedlight.executed_counts(
+            scene, o, d, cfg.replace(march_compaction=True), act)[0]
+    else:
+        ex_s = speedlight.warp_executed(s.fin)
+        ex_p = speedlight.phased_executed(s.fin, phases)
+    out = dict(ms_phased=ms_p, ms_single=ms_s, device_ms_phased=dev_p,
+               device_ms_single=dev_s, executed_phased=ex_p,
+               executed_single=ex_s, needed=needed, syncs=syncs or 0,
+               bit_equal=not differ, err=err, launches=launches[kind],
+               lanes=o.shape[0],
+               active=o.shape[0] if act is None else int(act.sum()))
+    tail = ""
+    if support is not None:
+        b = speedlight.march_bound(scene, cfg, s.fin, support, act)
+        out.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        tail = (f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), share "
+                f"{100 * b['bound_ms'] / dev_p:.2f}% phased, "
+                f"{100 * b['bound_ms'] / dev_s:.2f}% single (back to back)")
+    tax = lambda ex: 100 * (1 - needed / max(ex, 1))
+    log(f"[9a] {label}: {kind.upper()}, {out['lanes']} lanes "
+        f"({out['active']} active), {cfg.max_raymarch} trips in phases "
+        f"{phases} ({launches[kind]} launches a phased call): phased "
+        f"{ms_p:.4f} ms, single {ms_s:.4f} ms a call "
+        f"(p s s p: {', '.join(f'{v:.4f}' for v in turns)}); back to back "
+        f"{dev_p:.4f} / {dev_s:.4f} ms; lane-trips needed {needed}, "
+        f"executed phased {ex_p} (tax {tax(ex_p):.1f}%), single {ex_s} (tax "
+        f"{tax(ex_s):.1f}%); host syncs a phased call {syncs or 0}; "
+        f"{note}{tail}")
+    return out
+
+
+def phase_phased_calls(dev, cornell_rec, glass_rec, glass_support):
+    """9a: the phased march against the single call on the frames' calls:
+    the Cornell megakernel's bounce 0 (K1a), the engine and tokyo
+    primaries over their 512 trips (K1b), the glass megakernel's bounces 0
+    and 1 (K1c, K1d; bound and share on every GLASS_SUBSET-th lane, whose
+    MLP support 3j counted)."""
+    out = {}
+    scene, calls, names = cornell_rec
+    o, d, a, _, c = calls[0]
+    out[f"cornell megakernel {names[0]}"] = phased_call(
+        f"Cornell megakernel 480x480 {names[0]}", scene, o, d, a, c, 0)
+    for label, (sc, _, cam, cfg) in k1b_paths(dev).items():
+        o, d = primaries(cfg, cam)
+        out[f"{label} primaries"] = phased_call(f"{label} primaries", sc, o,
+                                                d, None, cfg, 0)
+        del o, d
+    glass, gcalls, gnames = glass_rec
+    for mxu in (False, True):
+        k = "K1d" if mxu else "K1c"
+        for j in (0, 1):
+            o, d, a, _, c = gcalls[j]
+            c = c.replace(bunny_mxu=mxu)
+            out[f"glass {gnames[j]}, {k}"] = phased_call(
+                f"glass megakernel 1920x1080 {gnames[j]}, {k}", glass, o, d,
+                a, c)
+            sub = [v[::GLASS_SUBSET].contiguous() for v in (o, d, a)]
+            out[f"glass {gnames[j]}, {k}, every {GLASS_SUBSET}th lane"] = (
+                phased_call(f"glass {gnames[j]}, {k}, every "
+                            f"{GLASS_SUBSET}th lane", glass, *sub, c,
+                            glass_support[mxu][j]))
+    return out
+
+
+def phase_phased_passes(dev):
+    """9b: the megakernel passes with ``march_compaction`` off and on in
+    turns off, on, on, off on bench.py's protocol: the glass bunny at
+    1920x1080 with K1c, then K1d (2048 trips: 7 launches a bounce phased),
+    and the Cornell full box at 480x480 (512 trips: 5). One pass each way
+    at sample 0: bit-identical (K1d: within the golden bar of 35 dB, and
+    said whether bit-identical)."""
+    glass_cfg = bunny.glass_config()
+    glass = bunny.animated_scene(bunny.glass_scene(dev),
+                                 torch.tensor(12.0, device=dev))
+    runs = [("glass 1920x1080, K1c", glass, bunny.glass_environment(
+                device=dev), bunny.camera(glass_cfg.width / glass_cfg.height,
+                                          dev), glass_cfg, GLASS_PASSES),
+            ("glass 1920x1080, K1d", glass, bunny.glass_environment(
+                device=dev), bunny.camera(glass_cfg.width / glass_cfg.height,
+                                          dev),
+             glass_cfg.replace(bunny_mxu=True), GLASS_PASSES),
+            ("Cornell full 480x480, K1a", cornell.full_scene(dev),
+             cornell.sky(dev), cornell.full_camera(dev),
+             cornell.full_config(), MEGA_PASSES)]
+    out = {}
+    for label, scene, env, cam, cfg, passes in runs:
+        kind = march_kernel.variant(scene, cfg)
+        phases = len(march.resolve_phases(cfg))
+        res = {False: [], True: []}
+        for j, comp in enumerate((False, True, True, False)):
+            r = megakernel_passes(
+                f"[9b] {label} march_compaction={comp}", scene, env, cam,
+                cfg.replace(march_compaction=comp), kind, passes,
+                first=1 + passes * j, warm=j < 2,
+                per_bounce=phases if comp else 1)
+            r.pop("img")
+            res[comp].append(r)
+        img, at0 = {}, {}
+        for comp in (False, True):
+            march_kernel.reset_launches()
+            img[comp] = render_image(scene, env, cam,
+                                     cfg.replace(march_compaction=comp),
+                                     spp=1, sample_offset=0, tonemapped=False)
+            torch.cuda.synchronize()
+            at0[comp] = march_kernel.LAUNCHES[kind]
+        # the launches a bounce, measured: a single-shot bounce launches once
+        per_bounce = at0[True] / at0[False]
+        if kind != "k1d" and per_bounce != phases:
+            raise AssertionError(f"[9b] {label}: {at0} launches at sample 0 "
+                                 f"for {phases} phases a bounce")
+        same = torch.equal(img[True], img[False])
+        tm = lambda x: postlib.tonemap(x, cfg).cpu().numpy()
+        db = psnr(tm(img[True]), tm(img[False]))
+        if kind == "k1d" and db < 35.0:
+            raise AssertionError(f"[9b] {label}: {db:.2f} dB between the "
+                                 f"phased and the single-shot image")
+        if kind != "k1d" and not same:
+            raise AssertionError(f"[9b] {label}: the phased image differs")
+        syncs = host_syncs(lambda: render_image(
+            scene, env, cam, cfg.replace(march_compaction=True), spp=1,
+            sample_offset=0, tonemapped=False))
+        mean = lambda comp, k: statistics.mean(v[k] for v in res[comp])
+        out[label] = dict(
+            ms_phased=mean(True, "ms"), ms_single=mean(False, "ms"),
+            msps_phased=mean(True, "msps"), msps_single=mean(False, "msps"),
+            bounces=res[False][0]["bounces"], launches_per_bounce=per_bounce,
+            launches_per_pass=res[True][0]["launches"] / passes,
+            syncs=syncs, bit_identical=same,
+            psnr=None if same else db)  # inf is not JSON
+        log(f"[9b] {label} ({card_line()}): phased "
+            f"{out[label]['ms_phased']:.3f} ms/pass, "
+            f"{out[label]['msps_phased']:.4f} Msamples/s; single "
+            f"{out[label]['ms_single']:.3f} ms/pass, "
+            f"{out[label]['msps_single']:.4f} Msamples/s (means of two runs "
+            f"in turns off, on, on, off); {out[label]['bounces']:.1f} "
+            f"bounces a single-shot pass, "
+            f"{out[label]['launches_per_pass']:.0f} {kind.upper()} launches "
+            f"a phased pass ({per_bounce:g} a bounce at sample 0); host syncs "
+            f"a phased pass {syncs}; the image at sample 0 "
+            f"{'bit-identical' if same else 'not bit-identical'} "
+            f"({'inf' if same else f'{db:.2f}'} dB)")
+    return out
+
+
+def adaptive_frames(scene, env, cam, cfg, compact):
+    """ADAPTIVE_FRAMES wavefront frames from a fresh state over the lane ->
+    pixel map, repacked actives-first every ADAPTIVE_EVERY frames when
+    ``compact``. Returns the last pixels and the map they were rendered
+    over, the last state and its map, each frame's ms (CUDA events, the
+    frame alone), the share of pixels gated off for the next frame, and
+    each compaction's ms and lanes moved."""
+    state = make_frame_state(cfg.num_pixels, device=scene.device)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=scene.device)
+    times, inactive, packs = [], [], []
+    march_kernel.reset_launches()
+    for f in range(1, ADAPTIVE_FRAMES + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        px, state = integrator.render_frame_tile(scene, env, cam, state, cfg,
+                                                 pid)
+        px_pid = pid
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        inactive.append(float((state.noise <= cfg.noise_threshold)
+                              .float().mean()))
+        if compact and f % ADAPTIVE_EVERY == 0:
+            start.record()
+            state, new = compactlib.compact_frame_state(state, pid,
+                                                        cfg.noise_threshold)
+            end.record()
+            end.synchronize()
+            packs.append((start.elapsed_time(end), int((new != pid).sum())))
+            pid = new
+    steps = cfg.samples_per_frame * cfg.samples_per_pixel
+    launches = dict(march_kernel.LAUNCHES)
+    if launches != {"k1a": steps * ADAPTIVE_FRAMES, "k1b": 0, "k1c": 0,
+                    "k1d": 0}:
+        raise AssertionError(f"[9c] launches {launches}")
+    return ((px, px_pid), state, pid, times, inactive, packs,
+            launches["k1a"])
+
+
+def same_bits(a, b) -> bool:
+    """Bit-identical tensors or arrays: equal bit patterns, so a NaN equals
+    a NaN of the same payload and -0.0 differs from 0.0."""
+    a = torch.as_tensor(a).cpu().contiguous()
+    b = torch.as_tensor(b).cpu().contiguous()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (v.view(view[v.element_size()]) for v in (a, b))
+    return torch.equal(a, b)
+
+
+def phase_adaptive_compaction(dev):
+    """9c: the Cornell main path at 480x480 with adaptive sampling
+    (noise threshold ADAPTIVE_THRESHOLD), ADAPTIVE_FRAMES frames compacted
+    every ADAPTIVE_EVERY frames against as many uncompacted, in turns off,
+    on, on, off. The compacted run's raster and uncompacted state equal
+    the other's bit for bit; a compaction moved lanes, and at least 10% of
+    the pixels were gated off at the last one."""
+    cfg = main_config().replace(adaptive_sampling=True,
+                                noise_threshold=ADAPTIVE_THRESHOLD)
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    # warm-up: the adaptive gate's first frames
+    st = make_frame_state(cfg.num_pixels, device=dev)
+    for _ in range(2):
+        _, st = render_frame(scene, env, cam, st, cfg)
+    torch.cuda.synchronize()
+    del st
+    runs = {False: [], True: []}
+    for comp in (False, True, True, False):
+        runs[comp].append(adaptive_frames(scene, env, cam, cfg, comp))
+    (px_a, _), st_a, _, t_a, inact, _, _ = runs[False][0]
+    (px_b, px_pid), st_b, pid_b, t_b, inact_b, packs, _ = runs[True][0]
+    # the pixels in raster order through the map they were rendered over
+    raster = compactlib.scatter_pixels(px_b, px_pid, cfg)
+    back = compactlib.uncompact_frame_state(st_b, pid_b)
+    bad = [k for k in ("accum", "pixels", "noise", "diff_accum", "respawn",
+                       "hit_t", "march_state", "march_cum", "sky_w")
+           if not same_bits(getattr(back, k), getattr(st_a, k))]
+    if not same_bits(back.rays.color, st_a.rays.color):
+        bad.append("rays.color")
+    if not same_bits(raster, px_a.cpu().numpy()):
+        bad.append("the raster")
+    if bad:
+        raise AssertionError(f"[9c] the compacted run differs in {bad}")
+    if inact != inact_b:
+        raise AssertionError("[9c] the inactive shares differ")
+    last = ADAPTIVE_FRAMES - ADAPTIVE_FRAMES % ADAPTIVE_EVERY - 1
+    if not (any(m for _, m in packs) and inact[last] >= 0.10):
+        raise AssertionError(f"[9c] compaction moved {packs} lanes with "
+                             f"{inact[last]:.3f} of pixels inactive")
+    first = min(k for k, (_, m) in enumerate(packs) if m)
+    after = (first + 1) * ADAPTIVE_EVERY  # frames from here run compacted
+    mean = lambda comp, sl: statistics.mean(
+        statistics.mean(r[3][sl]) for r in runs[comp])
+    out = dict(ms_off=mean(False, slice(None)), ms_on=mean(True, slice(None)),
+               ms_off_after=mean(False, slice(after, None)),
+               ms_on_after=mean(True, slice(after, None)),
+               pack_ms=statistics.mean(ms for r in runs[True]
+                                       for ms, _ in r[5]),
+               inactive=inact, moved=[m for _, m in packs], after=after,
+               launches_per_frame={
+                   "compacted" if comp else "uncompacted":
+                       statistics.mean(r[6] for r in runs[comp])
+                       / ADAPTIVE_FRAMES for comp in (False, True)})
+    log(f"[9c] adaptive Cornell 480x480 ({card_line()}), "
+        f"{ADAPTIVE_FRAMES} frames, noise threshold {ADAPTIVE_THRESHOLD}, "
+        f"compacted every {ADAPTIVE_EVERY}: raster and state bit-identical "
+        f"to the uncompacted run; inactive share after each frame "
+        f"{', '.join(f'{v:.3f}' for v in inact)}; lanes moved by each "
+        f"compaction {out['moved']}, {out['pack_ms']:.3f} ms each; ms/frame "
+        f"uncompacted {out['ms_off']:.3f}, compacted {out['ms_on']:.3f} "
+        f"(frames {after + 1}-{ADAPTIVE_FRAMES}, after the first compaction "
+        f"that moved lanes: {out['ms_off_after']:.3f} / "
+        f"{out['ms_on_after']:.3f}; means of two runs each, in turns); "
+        f"K1a launches a frame {out['launches_per_frame']}; frame ms "
+        f"compacted {', '.join(f'{v:.2f}' for v in t_b)}; uncompacted "
+        f"{', '.join(f'{v:.2f}' for v in t_a)}")
+    return out
+
+
+def phase_reprojection(dev):
+    """9d: the interactive app's session on the engine scene at 768x432
+    (``apps.interactive``) through REPROJECT_SCRIPT with ``--reproject``
+    and without: ms a frame, the frames that reprojected; ``reproject``'s
+    own ms (CUDA events) on the session's state; the card's ``reproject``
+    against the CPU's on the same state; and
+    ``tests/test_reproject.py::test_render_frame_reprojection_beats_zero_reset``'s
+    property at full width."""
+    out = {}
+    count = {"n": 0}
+    real = reprojectlib.reproject
+
+    def counted(*a, **k):
+        count["n"] += 1
+        return real(*a, **k)
+    shots = os.path.join(REPO, "build", "interactive_smoke")
+    for rp in (False, True, True, False):
+        sess = interactive.session_setup(1, reproject=rp, device=dev,
+                                         out_dir=shots)
+        sess.step()
+        torch.cuda.synchronize()
+        march_kernel.reset_launches()
+        count["n"] = 0
+        reprojectlib.reproject = counted
+        try:
+            t0 = time.perf_counter()
+            sess.run_commands(REPROJECT_SCRIPT)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / len(REPROJECT_SCRIPT) * 1e3
+        finally:
+            reprojectlib.reproject = real
+        launches = dict(march_kernel.LAUNCHES)
+        steps = sess.cfg.samples_per_frame * sess.cfg.samples_per_pixel
+        if launches != {"k1a": 0, "k1b": steps * len(REPROJECT_SCRIPT),
+                        "k1c": 0, "k1d": 0}:
+            raise AssertionError(f"[9d] launches {launches}")
+        if bool(count["n"]) != rp:
+            raise AssertionError(f"[9d] {count['n']} reprojections with "
+                                 f"--reproject {rp}")
+        if not bool(torch.isfinite(sess.pixels).all()):
+            raise AssertionError("[9d] the frame is not finite")
+        out.setdefault(rp, []).append(dict(ms=ms, reprojected=count["n"],
+                                           launches=launches["k1b"]))
+        log(f"[9d] interactive engine 768x432 --reproject {rp}: "
+            f"{len(REPROJECT_SCRIPT)} commands {REPROJECT_SCRIPT}, "
+            f"{ms:.3f} ms a frame, {count['n']} frames reprojected, "
+            f"{launches['k1b']} K1b launches")
+    cfg, state = sess.cfg.replace(reprojection=True), sess.state
+    cam = sess._camera()
+    moved = make_camera(lookfrom=(0.05, -0.15, 3.9), lookat=(0.0, -0.2, 3.0),
+                        vfov=sess.vfov, aspect=cfg.width / cfg.height,
+                        device=dev)
+    rp_ms = median_ms(lambda: reprojectlib.reproject(state, cam, moved, cfg),
+                      10)
+    got = reprojectlib.reproject(state, cam, moved, cfg)
+    ref = reprojectlib.reproject(to_cpu(state), to_cpu(cam), to_cpu(moved),
+                                 cfg)
+    close = lambda a, b: torch.isclose(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    acc_ok = close(got.accum, ref.accum).all(dim=1)
+    t_ok = close(got.hit_t, ref.hit_t)
+    acc_bits = float((got.accum.cpu() == ref.accum).all(dim=1)
+                     .float().mean())
+    t_bits = float((got.hit_t.cpu() == ref.hit_t).float().mean())
+    if float(acc_ok.float().mean()) < 0.999 or float(
+            t_ok.float().mean()) < 0.999:
+        raise AssertionError(f"[9d] reproject on the card vs the CPU: "
+                             f"{float(acc_ok.float().mean()):.5f} of "
+                             f"pixels close in accum, "
+                             f"{float(t_ok.float().mean()):.5f} in hit_t")
+    err = float((got.accum.cpu() - ref.accum).abs().max())
+    # the property at full width, after a small move: one frame on the
+    # warped history against one from zero, each against 40 frames of the
+    # new view. On the test's own scene (the minimal Cornell box, 512x512)
+    # in the mean radiance error, as the test judges it. On the app's
+    # engine frames (768x432, the HDR sky) in what the app shows, the
+    # tonemapped image, and in the median pixel's radiance error: there the
+    # mean radiance error is decided by HDR values, and the warp's splat
+    # (no depth test) carries bright history onto dim pixels, so it orders
+    # the two the other way, in the JAX package as in the port
+    # (tests/test_torch_reproject.py::test_engine_reprojection_errors_match_jax);
+    # it is printed beside, with the share of each error on pixels whose
+    # estimate is over ten times max(target, 1)
+    mcfg = cornell.minimal_config().replace(max_raytrace=8,
+                                            reprojection=True)
+    mcam = cornell.minimal_camera(dev)
+    props = {
+        "Cornell minimal 512x512": (
+            cornell.minimal_scene(dev), cornell.sky(dev), mcfg, mcam,
+            make_camera(lookfrom=(0.01, 0.0, 3.5), lookat=(0.01, 0.0, -1.0),
+                        vfov=35.0, aspect=1.0, aperture=0.0, focus=1.0,
+                        device=dev), False),
+        "engine 768x432": (
+            sess.scene, sess.env, cfg, demo.engine_camera(dev),
+            make_camera(lookfrom=(0.02, -0.2, 4.0), lookat=(0.02, -0.2, 3.0),
+                        aspect=cfg.width / cfg.height, device=dev), True)}
+    errs = {}
+    for label, (scene, env, pcfg, cam0, cam2, shown) in props.items():
+        def frames(c, n, st=None):
+            st = st if st is not None else make_frame_state(
+                pcfg.num_pixels, device=dev)
+            for _ in range(n):
+                _, st = render_frame(scene, env, c, st, pcfg)
+            return st
+
+        def mean_of(st):
+            return st.accum[:, :3] / torch.clamp_min(st.accum[:, 3:4], 1.0)
+        target = mean_of(frames(cam2, 40))
+        hist = frames(cam0, 30)
+        _, with_rp = render_frame(scene, env, cam2, hist, pcfg,
+                                  refreshing=True, prev_cam=cam0)
+        _, from_zero = render_frame(scene, env, cam2, hist,
+                                    pcfg.replace(reprojection=False),
+                                    refreshing=True)
+        e = reprojection_errors(target, mean_of(with_rp), mean_of(from_zero),
+                                lambda x: postlib.tonemap(x, pcfg))
+        judged = ("tonemapped", "median") if shown else ("radiance",)
+        if not all(e[k][0] < e[k][1] for k in judged):
+            raise AssertionError(f"[9d] {label}: reprojection's error is "
+                                 f"not below the zero reset's in {judged}: "
+                                 f"{e}")
+        errs[label] = dict(e, judged=judged)
+    out.update(reproject_ms=rp_ms, accum_bits=acc_bits, hit_t_bits=t_bits,
+               accum_err=err, property=errs)
+    mean = lambda rp: statistics.mean(v["ms"] for v in out[rp])
+    log(f"[9d] ({card_line()}) ms a frame: --reproject {mean(True):.3f}, "
+        f"without {mean(False):.3f} (means of two runs, in turns); "
+        f"reproject at {cfg.num_pixels} pixels {rp_ms:.4f} ms (median of "
+        f"10, CUDA events); against the CPU on the same state: accum within "
+        f"rtol 1e-5 on {float(acc_ok.float().mean()):.5f} of pixels, "
+        f"bit-equal on {acc_bits:.5f} (max |diff| {err:.3e}: the card's "
+        f"atomic adds reorder a pixel's sums), hit_t bit-equal on "
+        f"{t_bits:.5f}; after a small move, one frame's mean abs error "
+        f"against 40 frames of the new view, reprojected against from zero: "
+        + "; ".join(f"{k} (judged in {' and '.join(v['judged'])}): "
+                    + ", ".join(f"{m} {v[m][0]:.5f} / {v[m][1]:.5f}"
+                                for m in ("radiance", "median", "tonemapped",
+                                          "bright_share"))
+                    for k, v in errs.items()))
+    return out
+
+
+def reprojection_errors(target, with_rp, from_zero, tonemap):
+    """9d: one frame's error against the converged new view, reprojected
+    and from zero ((N, 3) radiance each), as [reprojected, from zero]: the
+    mean (``radiance``) and the median of the per-pixel mean absolute
+    radiance error, the tonemapped image's mean absolute error, and the
+    share of the radiance error on pixels whose estimate is over ten times
+    ``max(target, 1)`` (``bright_share``: HDR history on a dim pixel);
+    tests/test_torch_reproject.py defines the same on the CPU."""
+    out = {k: [] for k in ("radiance", "median", "tonemapped",
+                           "bright_share")}
+    tm_target = tonemap(target)
+    for est in (with_rp, from_zero):
+        e = (est - target).abs().mean(dim=1)
+        bright = est.amax(dim=1) > 10 * torch.clamp_min(target.amax(dim=1),
+                                                        1.0)
+        out["radiance"].append(float(e.mean()))
+        # numpy's median (the mean of the middle two), as the test's
+        out["median"].append(float(np.median(e.cpu().numpy())))
+        out["tonemapped"].append(float((tonemap(est) - tm_target).abs()
+                                       .mean()))
+        out["bright_share"].append(float(e[bright].sum() / e.sum()))
+    return out
+
+
+def phase_preview_app(dev):
+    """9e: ``progressive.run`` as ``--scene cornell --adaptive
+    --compact-every 4 --serve 0`` calls it, with the noise threshold at
+    ADAPTIVE_THRESHOLD (the config's gates no pixel off in a short run),
+    in a subprocess on the card for SERVE_MINUTES: /frame.png
+    and /stats fetched over localhost while it runs; rc 0; a compaction
+    moved lanes (the metrics' ``lanes_moved``); the saved ``final.png``
+    equal to the raster of the saved checkpoint's pixels."""
+    import urllib.error
+    import urllib.request
+    out = os.path.join(REPO, "build", "preview_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    metrics = os.path.join(out, "metrics.jsonl")
+    cmd = [sys.executable, "-c", (
+        "import sys\n"
+        "from raytracingpbr_tpu_torch.apps import progressive as p\n"
+        "scene, env, cam, cfg, exposure = p.scene_setup('cornell', "
+        "adaptive=True)\n"
+        f"p.run(scene, env, cam, cfg.replace(noise_threshold="
+        f"{ADAPTIVE_THRESHOLD}), sys.argv[1], minutes={SERVE_MINUTES}, "
+        f"exposure=exposure, metrics_path=sys.argv[2], serve=0, "
+        f"compact_every={ADAPTIVE_EVERY})\n"), out, metrics]
+    t0 = time.perf_counter()
+    with open(os.path.join(out, "stderr.txt"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        try:
+            url = None
+            for line in proc.stdout:
+                if line.startswith("preview: "):
+                    url = line.split()[1].rstrip("/")
+                    break
+            if url is None:
+                raise AssertionError("[9e] the app printed no preview URL")
+            png = None
+            deadline = time.time() + 300
+            while png is None and time.time() < deadline:
+                try:
+                    png = urllib.request.urlopen(url + "/frame.png",
+                                                 timeout=10).read()
+                except urllib.error.HTTPError as e:  # 503: no frame yet
+                    if e.code != 503:
+                        raise
+                    time.sleep(0.2)
+            stats = json.loads(urllib.request.urlopen(url + "/stats",
+                                                      timeout=10).read())
+            rest, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(os.path.join(out, "stderr.txt")) as f:
+            raise AssertionError(f"[9e] rc {proc.returncode}: "
+                                 f"{f.read()[-4000:]}")
+    if png is None or not png.startswith(b"\x89PNG"):
+        raise AssertionError("[9e] /frame.png served no PNG")
+    with open(metrics) as f:
+        rec = [json.loads(line) for line in f]
+    moved = [r["lanes_moved"] for r in rec if "lanes_moved" in r]
+    if not any(moved):
+        raise AssertionError(f"[9e] no compaction moved a lane: {moved}")
+    st, meta = ckpt.load(os.path.join(out, "state.npz"), device="cpu")
+    raster = st.pixels.numpy().reshape(480, 480, 3).transpose(1, 0, 2)[::-1]
+    saved = read_png(os.path.join(out, "final.png"))
+    if not np.array_equal(saved, imageio._to_u8(raster)):
+        raise AssertionError("[9e] final.png is not the raster of the "
+                             "checkpoint's pixels")
+    log(f"[9e] progressive.run, --scene cornell --adaptive --compact-every "
+        f"{ADAPTIVE_EVERY} --serve 0 --minutes {SERVE_MINUTES} at noise "
+        f"threshold {ADAPTIVE_THRESHOLD}: rc 0 in {secs:.1f} s, "
+        f"{meta['frame']} frames; fetched /frame.png ({len(png)} bytes) and "
+        f"/stats (frame "
+        f"{stats.get('frame')}, mean spp {stats.get('mean_spp', 0):.2f}) "
+        f"from {url} while it ran; compactions moved "
+        f"{moved[:3]}...{moved[-2:]} lanes ({len(moved)} compactions); "
+        f"final.png equals the raster of the checkpoint's pixels; last "
+        f"frame {rec[-1]['dt'] * 1e3:.1f} ms")
+    return dict(frames=meta["frame"], moved=moved, last_ms=rec[-1]["dt"])
+
+
+def compaction_phases(dev, cornell_rec, glass_rec, glass_support):
+    """9a-9e. Returns what the kernels line reads."""
+    t0 = time.perf_counter()
+    calls = phase_phased_calls(dev, cornell_rec, glass_rec, glass_support)
+    passes = phase_phased_passes(dev)
+    adaptive = phase_adaptive_compaction(dev)
+    reproj = phase_reprojection(dev)
+    app = phase_preview_app(dev)
+    log(f"[9] compaction and reprojection phases: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(calls=calls, passes=passes, adaptive=adaptive,
+                reproj=reproj, app=app)
+
+
 def main():
     dev = phase_device()
     build_s = phase_build()
@@ -2289,7 +2940,6 @@ def main():
     mega_cornell, mega_minimal, cornell_rec = phase_megakernel_cornell(dev)
     mega_glass, _, glass_q99, glass_rec = phase_megakernel_glass(dev)
     mega_a, mega_cd = phase_megakernel_calls(cornell_rec, glass_rec)
-    del cornell_rec, glass_rec
     err_a = max(err_a, mega_a["err"])
     err_c = max(err_c, mega_cd[f"{GLASS_CALLS}, K1c"]["err"])
     err_d = max(err_d, mega_cd[f"{GLASS_CALLS}, K1d"]["err"])
@@ -2297,6 +2947,11 @@ def main():
     offline_s = phase_offline_app()
     nee = nee_phases(dev)
     grads = gradient_phases(dev)
+    comp = compaction_phases(
+        dev, cornell_rec, glass_rec,
+        {mxu: mega_cd[f"{GLASS_CALLS}, {k}"]["supports"]
+         for mxu, k in ((False, "K1c"), (True, "K1d"))})
+    del cornell_rec, glass_rec
     err_a = max(err_a, grads["err_a"])
     err_b = max(err_b, grads["err_b"])
     err_b = max(err_b, *(v["err"] for v in nee["ab"].values()))
@@ -2411,30 +3066,53 @@ def main():
     g_b = {"gradients": {"launches_per_step": {
         "replay + NEE 128 bounces (shadow)":
             grads["nee"]["launches"]["k1b"]}}}
+    def compaction(e, pick, passes, **launches):
+        """The entry with 9a's phased calls whose label ``pick`` accepts
+        (ms each way, back to back, lane-trips executed each way, bound),
+        9b's phased passes named in ``passes`` and the launches of 9c-9d's
+        paths."""
+        keys = ("launches", "ms_phased", "ms_single", "device_ms_phased",
+                "device_ms_single", "executed_phased", "executed_single",
+                "needed", "syncs", "bit_equal", "bound_ms")
+        e["compaction"] = {
+            "phased_calls": {k: {f: v[f] for f in keys if f in v}
+                             for k, v in comp["calls"].items() if pick(k)},
+            "phased_passes": {k: v for k, v in comp["passes"].items()
+                              if k in passes},
+            **launches}
+        return e
+    per_frame = lambda rp: (comp["reproj"][rp][0]["launches"]
+                            / len(REPROJECT_SCRIPT))
     log(json.dumps({"kernels": [
-        megakernel(analytic(entry("march_k1a", "march.cu",
-                                  f"{TPU_KERNEL}:297", launch_a, err_a,
-                                  ka_ms, pa_ms, bound("k1a")),
-                            ("cornell 480x480",)),
-                   mega_cornell["bounces"], mega_a) | g_a,
-        shadow_frames(analytic(entry("march_k1b", "march.cu",
-                                     f"{TPU_KERNEL}:338", launch_b, err_b,
-                                     kb_ms, pb_ms, bound("k1b")),
-                               ("tokyo 2880x1620", "engine 768x432"))
-                      | {"megakernel": {"golden_launches": k1b_goldens}}
-                      | g_b),
-        shadow_pass(megakernel(
+        compaction(megakernel(analytic(entry(
+            "march_k1a", "march.cu", f"{TPU_KERNEL}:297", launch_a, err_a,
+            ka_ms, pa_ms, bound("k1a")), ("cornell 480x480",)),
+            mega_cornell["bounces"], mega_a) | g_a,
+            lambda k: k.startswith("cornell"), ("Cornell full 480x480, K1a",),
+            adaptive_launches_per_frame=(
+                comp["adaptive"]["launches_per_frame"])),
+        compaction(shadow_frames(analytic(entry(
+            "march_k1b", "march.cu", f"{TPU_KERNEL}:338", launch_b, err_b,
+            kb_ms, pb_ms, bound("k1b")), ("tokyo 2880x1620",
+                                          "engine 768x432"))
+            | {"megakernel": {"golden_launches": k1b_goldens}} | g_b),
+            lambda k: k.startswith(("tokyo", "engine")), (),
+            interactive_launches_per_frame={
+                "reproject": per_frame(True), "plain": per_frame(False)}),
+        compaction(shadow_pass(megakernel(
             pooled(entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156",
                          launch_c, err_c, kc_ms, pc_ms, bound("k1c")), "k1c",
                    ("glass 1920x1080, K1c", "metal 3840x2160, K1c")),
             mega_glass[False][0]["bounces"], mega_cd[f"{GLASS_CALLS}, K1c"]),
             "glass NEE shadow, K1c", False),
-        shadow_pass(megakernel(
+            lambda k: "K1c" in k, ("glass 1920x1080, K1c",)),
+        compaction(shadow_pass(megakernel(
             pooled(entry("march_k1d", "march_mxu.cu", f"{TPU_KERNEL}:124",
                          launch_d, err_d, kd_ms, pd_ms, bound("k1d")), "k1d",
                    ("glass 1920x1080, K1d", "metal 3840x2160, K1d")),
             mega_glass[True][0]["bounces"], mega_cd[f"{GLASS_CALLS}, K1d"]),
             "glass NEE shadow, K1d", True),
+            lambda k: "K1d" in k, ("glass 1920x1080, K1d",)),
         entry("fma_chains_k2", "speedlight.cu",
               "raytracingpbr_tpu/utils/speedlight.py:94", launch_2, err_2,
               k2_ms, k2_plain, (k2_bound, "operations"))]}))

@@ -51,13 +51,14 @@ class Roulette(enum.Enum):
 class RenderConfig:
     """Static render parameters; field for field the JAX ``RenderConfig``.
 
-    Fields the port does not act on yet are kept so that configs convert
-    one to one: ``march_chunk``, ``march_tile_rows`` and ``march_phases``
+    Configs convert one to one. ``march_chunk`` and ``march_tile_rows``
     are TPU kernel knobs with no counterpart here (the CUDA march has one
     thread per lane and exits per lane, or per warp in K1d), accepted and
-    ignored; ``env_sampling`` and ``reprojection`` raise in the integrator
-    and ``march_compaction`` in ``utils/speedlight``. ``bunny_mxu`` selects
-    the tensor-core bunny march K1d.
+    ignored, save that ``march_chunk`` rounds the phased march's budgets
+    as in the JAX package. ``march_compaction`` runs ``march()`` in the
+    phases of ``march_phases`` (or the automatic split) over repartitioned
+    lanes (``ops/march.march_phased``). ``bunny_mxu`` selects the
+    tensor-core bunny march K1d.
     """
 
     resolution: Tuple[int, int] = (768, 432)  # (W, H)

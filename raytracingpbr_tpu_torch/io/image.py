@@ -24,8 +24,10 @@ def _to_u8(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an (H, W, 3) image (float in [0, 1] or uint8) as an RGB PNG."""
+def encode_png(img: np.ndarray, level: int = 1) -> bytes:
+    """An (H, W, 3) image (float in [0, 1] or uint8) as the bytes of an RGB
+    PNG. zlib level 1 by default: the live preview's frames are
+    latency-bound."""
     u8 = _to_u8(img)
     h, w = u8.shape[:2]
     raw = b"".join(b"\x00" + u8[y].tobytes() for y in range(h))
@@ -36,9 +38,14 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (_SIG + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, level)) + chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an (H, W, 3) image (float in [0, 1] or uint8) as an RGB PNG."""
     with open(path, "wb") as f:
-        f.write(_SIG + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+        f.write(encode_png(img, level=6))
 
 
 def read_png(path: str) -> np.ndarray:

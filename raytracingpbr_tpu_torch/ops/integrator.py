@@ -30,8 +30,9 @@ reference's bounce budgets in O(rays) memory. ``wavefront_step`` takes the
 same flag for its one bounce.
 
 Every random draw is counter-derived from ``(pixel_id, step, stream,
-seed)``. Not ported yet: temporal reprojection (``cfg.reprojection``
-raises NotImplementedError, naming ROADMAP item 14).
+seed)``. With ``cfg.reprojection``, ``render_frame(prev_cam=...)`` warps
+the accumulator into the new view on a refresh (``ops/reproject.py``);
+the megakernel ignores the field, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from ..core.types import (NO_HIT_T, Camera, FrameState, Rays,
 from . import camera as cameralib
 from . import march as marchlib
 from . import post as postlib
+from . import reproject as reprojectlib
 from . import scene as scenelib
 from . import shade as shadelib
 from .ibl import Environment, env_pdf, sample_env_baked, sky_color
@@ -69,12 +71,6 @@ def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 def _where_rays(mask: torch.Tensor, a: Rays, b: Rays) -> Rays:
     return Rays(*(_where(mask, getattr(a, f.name), getattr(b, f.name))
                   for f in dataclasses.fields(Rays)))
-
-
-def _check_supported(cfg: RenderConfig):
-    if cfg.reprojection:
-        raise NotImplementedError("temporal reprojection is not ported yet "
-                                  "(ROADMAP Queue 1, item 14)")
 
 
 def shadow_march(scene: Scene, origin, direction, cfg: RenderConfig,
@@ -318,7 +314,6 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
     deposit and respawn. ``differentiable``: attach the march's hit-point
     gradients (``march._hit_t``). Returns ``(rays, accum, respawn, hit_t,
     sky_w, march_state, march_cum)``."""
-    _check_supported(cfg)
     depth = rays.depth
     dtype = rays.color.dtype
     # split only when the budget divides max_raymarch: an unconverged lane
@@ -424,10 +419,19 @@ def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
 
 def render_frame(scene: Scene, env: Environment, cam: Camera,
                  state: FrameState, cfg: RenderConfig, refreshing=False,
-                 exposure=1.0):
+                 exposure=1.0, prev_cam: Optional[Camera] = None):
     """One display frame: optional refresh, ``samples_per_frame x
     samples_per_pixel`` wavefront steps, then postprocess. Returns
-    ``(pixels (N, 3), new_state)``."""
+    ``(pixels (N, 3), new_state)``.
+
+    With ``cfg.reprojection`` and a ``prev_cam``, a refresh warps the
+    accumulator from ``prev_cam``'s view into ``cam``'s
+    (``ops/reproject.reproject``) in place of zeroing it. Without
+    ``prev_cam`` the frame renders as usual."""
+    if cfg.reprojection and prev_cam is not None:
+        if refreshing:
+            state = reprojectlib.reproject(state, prev_cam, cam, cfg)
+        refreshing = False  # the warp re-armed the state
     pixel_id = torch.arange(cfg.num_pixels, dtype=torch.int64,
                             device=state.accum.device)
     return render_frame_tile(scene, env, cam, state, cfg, pixel_id,
@@ -440,7 +444,6 @@ def render_frame_tile(scene: Scene, env: Environment, cam: Camera,
                       exposure=1.0):
     """``render_frame`` over an explicit tile of global pixel ids; the
     state's tensors are sized to ``pixel_id``."""
-    _check_supported(cfg)
     if refreshing:
         state = refresh(state)
     rays, accum = state.rays, state.accum
@@ -572,7 +575,6 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
     reference's uint32 arithmetic wraps. The loop asks whether any lane is
     alive every :data:`EXIT_CHECK_EVERY` bounces; the result does not
     depend on it."""
-    _check_supported(cfg)
     if reflect_kill is None:
         reflect_kill = roughness_fresnel and not differentiable
     if differentiable == "replay":
@@ -707,7 +709,6 @@ def render_image(scene: Scene, env: Environment, cam: Camera,
     ``rng.sampler4(cfg.low_discrepancy)``. Runs on the scene's device.
     ``differentiable`` as in :func:`megakernel_trace`. Returns (H, W, 3),
     row 0 at the top."""
-    _check_supported(cfg)
     n = cfg.num_pixels
     spp = spp if spp is not None else cfg.samples_per_pixel
     dev = scene.device

@@ -694,3 +694,74 @@ def test_train_step_matrix_then_kernel_equals_plain(cuda_device):
     assert all(p is None for p in ts.scene.rot_perm)
     o, d = primaries(cornell.full_config(), cuda_device)
     assert_bit_equal(*both(ts.scene, o, d, cornell.full_config()))
+
+
+PHASED_CASES = {
+    "k1a": lambda dev: (cornell.full_scene(dev),
+                        cornell.full_config().replace(max_raymarch=256)),
+    "k1b": lambda dev: (demo.engine_scene(dev),
+                        demo.engine_config().replace(max_raymarch=256)),
+    "k1c": lambda dev: (bunny.glass_scene(dev),
+                        bunny.glass_config().replace(max_raymarch=256)),
+    "k1d": lambda dev: (bunny.glass_scene(dev), bunny.glass_config().replace(
+        max_raymarch=256, bunny_mxu=True)),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(PHASED_CASES))
+def test_phased_march_equals_single_call(cuda_device, kind):
+    """``march.march_phased`` on the card: one launch a phase, no other;
+    the eight outputs equal one launch of the whole budget bit for bit,
+    gated lanes included (K1d too: its MLP rows are independent), and
+    ``march()`` under ``cfg.march_compaction`` takes that path."""
+    scene, cfg = PHASED_CASES[kind](cuda_device)
+    o, d = (torch.as_tensor(v, device=cuda_device)
+            for v in random_rays(5000, 3, center=(0.0, 0.0, 3.0),
+                                 spread=0.3))
+    act = torch.as_tensor(np.random.default_rng(1).random(5000) < 0.8,
+                          device=cuda_device)
+    single = tmarch.ResumableResult(*march_kernel.march_resumable_cuda(
+        scene, o, d, cfg, active=act))
+    march_kernel.reset_launches()
+    phased = tmarch.march_phased(scene, o, d, cfg, active=act)
+    torch.cuda.synchronize()
+    assert march_kernel.LAUNCHES[kind] == len(tmarch.resolve_phases(cfg))
+    assert sum(march_kernel.LAUNCHES.values()) == march_kernel.LAUNCHES[kind]
+    assert_bit_equal(phased, single)
+    res = tmarch.march(scene, o, d, cfg.replace(march_compaction=True),
+                       differentiable=False, active=act)
+    assert torch.equal(res.t, single.t) and torch.equal(res.hit, single.hit)
+
+
+def test_reproject_on_the_card_against_the_cpu(cuda_device):
+    """``reproject`` on the card against the CPU on the same state: the
+    accumulator and the depths within rtol 1e-5 on at least 99.9% of the
+    pixels (the card's atomic adds reorder a pixel's sums, and its libm
+    may round a camera's tangent or a distance one ulp apart)."""
+    import dataclasses
+
+    from raytracingpbr_tpu_torch.core.types import (make_camera,
+                                                    make_frame_state)
+    from raytracingpbr_tpu_torch.ops import reproject as rp
+    from raytracingpbr_tpu_torch.ops.integrator import render_frame
+
+    cfg = cornell.minimal_config().replace(resolution=(64, 48),
+                                           max_raytrace=8)
+    scene, env = cornell.minimal_scene(cuda_device), cornell.sky(cuda_device)
+    cam = cornell.minimal_camera(cuda_device)
+    state = make_frame_state(cfg.num_pixels, cuda_device)
+    for _ in range(4):
+        _, state = render_frame(scene, env, cam, state, cfg)
+    moved = make_camera(lookfrom=(0.03, 0.0, 3.4), lookat=(0.0, 0.0, -1.0),
+                        vfov=40.0, aspect=cfg.width / cfg.height,
+                        device=cuda_device)
+
+    def cpu(x):
+        return type(x)(**{k: cpu(v) if dataclasses.is_dataclass(v)
+                          else v.cpu() for k, v in vars(x).items()})
+    got = rp.reproject(state, cam, moved, cfg)
+    ref = rp.reproject(cpu(state), cpu(cam), cpu(moved), cfg)
+    ok = torch.isclose(got.accum.cpu(), ref.accum, rtol=1e-5, atol=1e-6)
+    assert float(ok.all(dim=1).float().mean()) >= 0.999
+    ok = torch.isclose(got.hit_t.cpu(), ref.hit_t, rtol=1e-5, atol=1e-6)
+    assert float(ok.float().mean()) >= 0.999

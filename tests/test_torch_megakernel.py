@@ -199,18 +199,18 @@ def test_unported_modes_raise(mode):
     """The gradient modes, once unported, now run: ``render_image`` and
     ``megakernel_trace`` with ``differentiable`` True (scan-AD) or
     ``"replay"`` give the forward render's numbers bit for bit at a pinned
-    ``reflect_kill``. What is still unported, ``cfg.reprojection``, raises
-    naming ROADMAP item 14."""
+    ``reflect_kill``. ``cfg.reprojection``, once unported, is ignored by
+    the megakernel as the JAX package's ignores it: the same bits."""
     cfg = tcornell.full_config().replace(resolution=(6, 6), max_raymarch=96,
                                          max_raytrace=6)
     kw = {"differentiable": True if mode == "differentiable" else "replay"}
     args = (tcornell.full_scene(CPU), tcornell.sky(CPU))
     cam = tcornell.full_camera(CPU)
-    ref = tinteg.render_image(*args, cam, cfg, reflect_kill=False,
-                              tonemapped=False)
+    ref_image = tinteg.render_image(*args, cam, cfg, reflect_kill=False,
+                                    tonemapped=False)
     got = tinteg.render_image(*args, cam, cfg, reflect_kill=False,
                               tonemapped=False, **kw)
-    assert torch.equal(got, ref)
+    assert torch.equal(got, ref_image)
     pid = torch.arange(cfg.num_pixels)
     u = trng.uniform4(pid, 0, 1, cfg.seed)
     from raytracingpbr_tpu_torch.ops import camera as tcamera
@@ -221,8 +221,9 @@ def test_unported_modes_raise(mode):
     got = tinteg.megakernel_trace(*args, rays, pid, 0, cfg,
                                   reflect_kill=False, **kw)
     assert torch.equal(got.color, ref.color)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tinteg.render_image(*args, cam, cfg.replace(reprojection=True), **kw)
+    got = tinteg.render_image(*args, cam, cfg.replace(reprojection=True),
+                              reflect_kill=False, tonemapped=False, **kw)
+    assert torch.equal(got, ref_image)
 
 
 def test_march_and_reflect_kill_defaults_match_jax():

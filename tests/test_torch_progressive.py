@@ -9,8 +9,8 @@ of, on the CPU at small sizes:
   load and N - k frames, with NEE on, and the app's two runs equal one
   straight render of as many frames;
 * the app's outputs (PNGs, checkpoint, metrics, debug views), ``--nee``'s
-  ValueError on a sky that is not HDR, and the options not ported yet
-  (``--serve``, ``--compact-every``) raising;
+  ValueError on a sky that is not HDR, and ``--serve`` and
+  ``--compact-every`` running;
 * ``MetricsLogger.frame_stats`` against JAX's, and ``utils/validate``.
 """
 import json
@@ -213,9 +213,13 @@ def test_jax_checkpoint_resumes_in_the_app(tmp_path, capsys):
                                        (["--compact-every", "4",
                                          "--adaptive"], "item 14")])
 def test_unported_options_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        progressive.main([*APP, "--out", str(tmp_path), *flag])
-    assert not os.listdir(tmp_path)
+    """The options, once unported (they raised, naming ROADMAP ``item``),
+    now run: two frames, then the PNGs and the checkpoint
+    (``tests/test_torch_apps.py`` holds what they serve and save)."""
+    progressive.main([*APP, "--frames", "2", "--out", str(tmp_path), *flag])
+    assert {"final.png", "state.npz"} <= set(os.listdir(tmp_path))
+    back, _ = ckpt.load(os.path.join(str(tmp_path), "state.npz"), device=CPU)
+    assert int(back.frame) == 2
 
 
 def test_nee_needs_an_hdr_sky(tmp_path):

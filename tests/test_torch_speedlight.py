@@ -206,6 +206,8 @@ def test_card_measurements_need_the_card():
     o, d = tt(np.zeros((4, 3), np.float32)), tt(np.ones((4, 3), np.float32))
     with pytest.raises(ValueError):
         speedlight.march_utilization(scene, o, d, cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the phased march (march_compaction), once unported, is timed on the
+    # card as the unphased one is
+    with pytest.raises(ValueError, match="CUDA tensors"):
         speedlight.march_utilization(scene, o, d,
                                      cfg.replace(march_compaction=True))

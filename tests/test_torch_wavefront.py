@@ -6,6 +6,7 @@ same converted mid-flight state. Lane agreement at rtol 1e-4, as in
 import jax
 import numpy as np
 import pytest
+import torch
 
 from raytracingpbr_tpu.core.types import make_frame_state as j_make_state
 from raytracingpbr_tpu.models import cornell as jcornell
@@ -88,12 +89,21 @@ def test_refresh_rearms_and_keeps_frame():
 
 @pytest.mark.parametrize("field", ["reprojection"])
 def test_unported_options_raise(field):
-    cfg = RenderConfig(resolution=(4, 4), **{field: True})
-    with pytest.raises(NotImplementedError):
-        tinteg.render_frame(tcornell.full_scene(CPU), tcornell.sky(CPU),
-                            tcornell.full_camera(CPU),
-                            make_frame_state(16, CPU),
-                            cfg)
+    """The option, once unported (it raised), now runs: with no
+    ``prev_cam`` a frame renders exactly as without it, refreshing or
+    not, as JAX's ``render_frame`` does."""
+    cfg = RenderConfig(resolution=(4, 4), max_raymarch=64, max_raytrace=8)
+    args = (tcornell.full_scene(CPU), tcornell.sky(CPU),
+            tcornell.full_camera(CPU))
+    for refreshing in (False, True):
+        ref = tinteg.render_frame(*args, make_frame_state(16, CPU), cfg,
+                                  refreshing=refreshing)
+        got = tinteg.render_frame(*args, make_frame_state(16, CPU),
+                                  cfg.replace(**{field: True}),
+                                  refreshing=refreshing)
+        assert torch.equal(got[0], ref[0])
+        assert torch.equal(got[1].accum, ref[1].accum)
+        assert torch.equal(got[1].hit_t, ref[1].hit_t)
 
 
 def test_env_sampling_requires_baked_table():
