@@ -215,6 +215,37 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     moved lanes (the metrics' ``lanes_moved``); the saved ``final.png``
     equal to the raster of the saved checkpoint's pixels.
 
+10a. sharded stills: ``parallel/render.render_image_sharded`` on the
+    Cornell full box at 480x480, spp 4, in one process, on the meshes
+    (8, 1) contiguous and strided, (4, 2) and (2, 4): tiles-only meshes
+    bit-identical to ``render_image``, sample meshes within atol 1e-5 /
+    rtol 1e-4; ms a pass of each next to the unsharded pass; K1a alone.
+10b. sharded frames: the Cornell main path, 4 frames through
+    ``render_frame_sharded`` on (8, 1) contiguous and strided, pixels and
+    accumulator bit-identical to ``render_frame``; the engine at 768x432
+    with ``cfg.reprojection`` on (8, 1) strided (3 frames, a 0.08 move, a
+    reprojected refresh) within rtol 1e-5 on 99.9% of pixels (PR 9's bar:
+    the warp's atomics); the adaptive gate at ADAPTIVE_THRESHOLD over 8
+    frames, the same pixels stopped.
+10c. processes: ``python -m raytracingpbr_tpu_torch.apps.multihost
+    --device cuda --backend gloo`` in a subprocess, two processes sharing
+    the card with 4 ranks each of (8, 1) (Cornell full 480x480, spp 2),
+    bit-identical to one process, and 3 train steps on (4, 2) within rtol
+    1e-5; then a one-process NCCL group through ``multihost.work``, its
+    all_gathers called, equal to the group-less mesh.
+10d. scaling: ``parallel/scaling.measure`` on (8, 1) contiguous and
+    strided (the Cornell main path at 480x480): the per-tile table and the
+    imbalance of each layout, in time and in the longest primary march.
+10e. the train step on the (4, 2) mesh at full width (Cornell full
+    480x480, 8 bounces, albedo only): 1 + 5 timed steps, s/step next to
+    8e's; a 1 x 1 mesh's step against 8e's (loss bit-identical, the scene
+    within rtol 1e-5: atomics).
+10f. ``apps.denoise_demo.run`` at 768x432 on the card, 100 steps timed, 10
+    held within 1e-5 of the CPU; ``scene.calc_normal_tetrahedron`` on the
+    card against the CPU; how often the card's division by a host scalar
+    (a multiply by its reciprocal) rounds apart from the CPU's, against a
+    divisor that is a tensor on the card.
+
 Each path's launch counts are set to 0 just before it and read just after.
 The last lines are the kernels' JSON record (K1a and K1b with their mean
 call inside their frames, a call alone and back to back; K1c and K1d with
@@ -223,17 +254,20 @@ theirs; K1a, K1c and K1d with their launches a megakernel pass and their
 K1b, K1c and K1d with their 7d shadow calls' time, bound, share and
 launches; K1a and K1b with their launches a step on the gradient paths;
 each with its 9a phased calls, its 9b phased passes and its launches in
-9c-9d),
+9c-9d; K1a with its sharded paths' launches in 10a-10e, K1b with the
+reprojected engine frame's in 10b),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no jax.
 """
 import dataclasses
+import functools
 import json
 import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -242,7 +276,8 @@ import torch
 
 from raytracingpbr_tpu_torch import (HitCriterion, OmegaPolicy, RenderConfig,
                                      Roulette, make_camera)
-from raytracingpbr_tpu_torch.apps import interactive, progressive
+from raytracingpbr_tpu_torch.apps import (denoise_demo, interactive,
+                                          multihost, progressive)
 from raytracingpbr_tpu_torch.core import rng
 from raytracingpbr_tpu_torch.core.types import make_frame_state
 from raytracingpbr_tpu_torch.io import checkpoint as ckpt
@@ -260,6 +295,9 @@ from raytracingpbr_tpu_torch.ops.integrator import (render_frame,
                                                     render_image,
                                                     render_image_progressive)
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE, BunnyMLP, bunny_mlp_eval
+from raytracingpbr_tpu_torch.parallel import mesh as pmesh
+from raytracingpbr_tpu_torch.parallel import render as prender
+from raytracingpbr_tpu_torch.parallel import scaling as pscaling
 from raytracingpbr_tpu_torch.parallel import train as ptrain
 from raytracingpbr_tpu_torch.utils import speedlight
 from raytracingpbr_tpu_torch.utils.metrics import psnr
@@ -316,6 +354,20 @@ ADAPTIVE_THRESHOLD = 0.15
 REPROJECT_SCRIPT = ("w", "w", "d", "l", "u", "s", "r", "a", "n", "w", "d",
                     "l")
 SERVE_MINUTES = 0.15
+# distributed (10a-10f): the sharded stills' meshes and samples per pixel;
+# the sharded frames, and the adaptive gate's (ADAPTIVE_THRESHOLD stops
+# pixels from the sixth frame on); the scaling report's timed frames a
+# tile; the mesh train step's timed steps; the denoise demo's timed steps
+# and the steps held against the CPU
+SHARDED_MESHES = ((8, 1, "contiguous"), (8, 1, "strided"),
+                  (4, 2, "contiguous"), (2, 4, "contiguous"))
+SHARDED_SPP = 4
+SHARDED_FRAMES = 4
+SHARDED_ADAPTIVE_FRAMES = 8
+SCALING_ITERS = 3
+MESH_TRAIN_STEPS = 5
+DENOISE_STEPS = 100
+DENOISE_HELD = 10
 
 
 def log(*a):
@@ -2906,6 +2958,393 @@ def compaction_phases(dev, cornell_rec, glass_rec, glass_support):
                 reproj=reproj, app=app)
 
 
+# --- distributed: the mesh, sharded stills and frames, the train step -------
+
+def timed_s(fn):
+    """Seconds of fn() on the host clock between two syncs, and its
+    result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def launches_of(fn):
+    """fn()'s result and the march kernels' launches it made."""
+    march_kernel.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(march_kernel.LAUNCHES)
+
+
+def phase_sharded_stills(dev):
+    """10a: ``render_image_sharded`` on the Cornell full box at 480x480,
+    spp SHARDED_SPP, on each of SHARDED_MESHES in one process, against
+    ``render_image``: tiles-only meshes bit-identical, sample meshes within
+    atol 1e-5 / rtol 1e-4; K1a the only march kernel. Then ms a pass (a
+    sample of every pixel) of each, every render timed twice in turns
+    (unsharded, the meshes, the meshes backwards, unsharded)."""
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    cfg = cornell.full_config()
+    runs = {"unsharded": lambda: render_image(
+        scene, env, cam, cfg, spp=SHARDED_SPP, tonemapped=False)}
+    for tiles, samples, layout in SHARDED_MESHES:
+        runs[f"({tiles},{samples}) {layout}"] = functools.partial(
+            prender.render_image_sharded, scene, env, cam, cfg,
+            pmesh.make_mesh(tiles, samples), spp=SHARDED_SPP,
+            tonemapped=False, layout=layout)
+    out, ref = {}, None
+    for label, run in runs.items():
+        img, launches = launches_of(run)
+        if any(v for k, v in launches.items() if k != "k1a") or not \
+                launches["k1a"]:
+            raise AssertionError(f"[10a] {label}: launches {launches}")
+        out[label] = dict(k1a_per_pass=launches["k1a"] / SHARDED_SPP)
+        if ref is None:
+            ref = img
+            continue
+        same = same_bits(img, ref)
+        err = float((img - ref).abs().max())
+        if "1)" in label and not same:
+            raise AssertionError(f"[10a] {label}: not bit-identical to "
+                                 f"render_image (max |diff| {err})")
+        if not torch.allclose(img, ref, atol=1e-5, rtol=1e-4):
+            raise AssertionError(f"[10a] {label}: max |diff| {err}")
+        out[label].update(bit_identical=same, max_abs_diff=err)
+    times = {label: [] for label in runs}
+    for label in list(runs) + list(runs)[::-1]:
+        times[label].append(timed_s(runs[label])[0])
+    for label, v in out.items():
+        v["ms_per_pass"] = statistics.mean(times[label]) / SHARDED_SPP * 1e3
+        v["ms_per_pass_runs"] = [t / SHARDED_SPP * 1e3 for t in times[label]]
+        check = ("" if label == "unsharded" else
+                 "; bit-identical to render_image" if v["bit_identical"]
+                 else f"; within atol 1e-5 / rtol 1e-4 (max |diff| "
+                      f"{v['max_abs_diff']:.3e})")
+        log(f"[10a] Cornell full 480x480, spp {SHARDED_SPP}, {label}: "
+            f"{v['ms_per_pass']:.3f} ms a pass (runs "
+            f"{', '.join(f'{t:.3f}' for t in v['ms_per_pass_runs'])}; "
+            f"unsharded {out['unsharded']['ms_per_pass']:.3f}){check}; K1a "
+            f"{v['k1a_per_pass']:g} launches a pass")
+    return out
+
+
+def frames_each_way(scene, env, cam, cfg, mesh, layout, count):
+    """``count`` frames from fresh states through ``render_frame`` and
+    through ``render_frame_sharded`` on ``mesh``, in turns (a frame of
+    each, which goes first alternating), each frame timed alone between
+    syncs. Returns the unsharded and the sharded (pixels, state), the mean
+    ms a frame of each over frames 2 on, and the sharded run's launches
+    a frame."""
+    step = {False: lambda st: render_frame(scene, env, cam, st, cfg),
+            True: lambda st: prender.render_frame_sharded(
+                scene, env, cam, st, cfg, mesh, layout=layout)}
+    fresh = make_frame_state(cfg.num_pixels, device=scene.device)
+    res = {False: (None, fresh),
+           True: (None, prender.shard_frame_state(fresh, mesh, layout))}
+    ms = {False: [], True: []}
+    per = dict.fromkeys(march_kernel.LAUNCHES, 0)
+    for f in range(count):
+        for sharded in ((False, True) if f % 2 == 0 else (True, False)):
+            march_kernel.reset_launches()
+            secs, res[sharded] = timed_s(lambda: step[sharded](
+                res[sharded][1]))
+            if sharded:
+                for k, v in march_kernel.LAUNCHES.items():
+                    per[k] += v / count
+            if f:
+                ms[sharded].append(secs * 1e3)
+    return [(res[k], statistics.mean(ms[k]), per) for k in (False, True)]
+
+
+def phase_sharded_frames(dev):
+    """10b: the Cornell main path (480x480, 4 steps a frame) for
+    SHARDED_FRAMES frames through ``render_frame_sharded`` on (8, 1)
+    contiguous and strided: pixels and accumulator bit-identical to
+    ``render_frame``'s; the engine at 768x432 with ``cfg.reprojection`` on
+    (8, 1) strided: 3 frames, a 0.08 move, a reprojected refresh, held to
+    PR 9's bar (rtol 1e-5 on at least 99.9% of pixels); the adaptive gate
+    at ADAPTIVE_THRESHOLD over SHARDED_ADAPTIVE_FRAMES frames (strided):
+    the set of stopped pixels equal."""
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    cfg = main_config()
+    mesh = pmesh.make_mesh(8, 1)
+    out = {}
+    for layout in ("contiguous", "strided"):
+        (a, ms_a, _), (b, ms_b, per) = frames_each_way(
+            scene, env, cam, cfg, mesh, layout, SHARDED_FRAMES)
+        un = lambda x: prender.unshard_pixels(x, 8, layout)
+        if not (same_bits(un(b[0]), a[0])
+                and same_bits(un(b[1].accum), a[1].accum)):
+            raise AssertionError(f"[10b] (8,1) {layout}: the frames differ "
+                                 "from render_frame")
+        if per["k1a"] != 4 or sum(per.values()) != 4:
+            raise AssertionError(f"[10b] launches a frame {per}")
+        out[f"cornell (8,1) {layout}"] = dict(ms=ms_b, ms_unsharded=ms_a,
+                                              k1a_per_frame=per["k1a"])
+        log(f"[10b] Cornell 480x480 (8,1) {layout}, {SHARDED_FRAMES} frames:"
+            f" pixels and accumulator bit-identical to render_frame; "
+            f"{ms_b:.3f} ms/frame sharded, {ms_a:.3f} unsharded; K1a "
+            f"{per['k1a']:g} a frame")
+
+    escene, eenv, ecam, ecfg = k1b_paths(dev)["engine 768x432"]
+    ecfg = ecfg.replace(reprojection=True)
+    moved = dataclasses.replace(ecam, lookfrom=ecam.lookfrom + torch.tensor(
+        [0.08, 0.0, 0.0], device=dev))
+    (a, _, _), (b, _, per) = frames_each_way(escene, eenv, ecam, ecfg, mesh,
+                                             "strided", 3)
+    _, st_a = render_frame(escene, eenv, moved, a[1], ecfg, refreshing=True,
+                           prev_cam=ecam)
+    (_, st_b), launches = launches_of(lambda: prender.render_frame_sharded(
+        escene, eenv, moved, b[1], ecfg, mesh, refreshing=True,
+        prev_cam=ecam, layout="strided"))
+    acc = prender.unshard_pixels(st_b.accum, 8, "strided")
+    ok = float(torch.isclose(acc, st_a.accum, rtol=1e-5, atol=1e-6)
+               .all(dim=1).float().mean())
+    equal = float((acc == st_a.accum).all(dim=1).float().mean())
+    if ok < 0.999 or launches["k1b"] != 4 or sum(launches.values()) != 4:
+        raise AssertionError(f"[10b] engine reprojection: {ok:.5f} of pixels"
+                             f" within rtol 1e-5, launches {launches}")
+    out["engine (8,1) strided, reprojected"] = dict(
+        close=ok, bit_equal=equal, k1b_per_frame=launches["k1b"])
+    log(f"[10b] engine 768x432 (8,1) strided, reprojection: 3 frames, a "
+        f"0.08 move, a reprojected refresh: the accumulator within rtol "
+        f"1e-5 on {ok:.5f} of pixels, bit-equal on {equal:.5f}; K1b "
+        f"{launches['k1b']} launches a frame, {per['k1b']:g} before")
+
+    acfg = cfg.replace(adaptive_sampling=True,
+                       noise_threshold=ADAPTIVE_THRESHOLD)
+    (a, _, _), (b, _, _) = frames_each_way(scene, env, cam, acfg, mesh,
+                                           "strided",
+                                           SHARDED_ADAPTIVE_FRAMES)
+    stop_a = a[1].noise <= ADAPTIVE_THRESHOLD
+    stop_b = prender.unshard_pixels(b[1].noise, 8,
+                                    "strided") <= ADAPTIVE_THRESHOLD
+    if not (bool(stop_a.any()) and torch.equal(stop_a, stop_b)):
+        raise AssertionError("[10b] the adaptive gate stopped other pixels")
+    share = float(stop_a.float().mean())
+    out["adaptive (8,1) strided"] = dict(stopped=share)
+    log(f"[10b] adaptive gate at {ADAPTIVE_THRESHOLD}, "
+        f"{SHARDED_ADAPTIVE_FRAMES} frames (8,1) strided: the same "
+        f"{share:.4f} of pixels stopped")
+    return out
+
+
+def phase_sharded_processes(dev):
+    """10c: ``apps.multihost`` in a subprocess, two processes sharing the
+    card over gloo, each with 4 ranks of the (8, 1) mesh: Cornell full at
+    480x480, spp 2, bit-identical to the one-process render; 3 train steps
+    on (4, 2) within rtol 1e-5 of the one-process mesh. Then a
+    one-process NCCL group through the same calls (``multihost.work``),
+    against the group-less mesh."""
+    full = cornell.full_config()
+    cmd = [sys.executable, "-m", "raytracingpbr_tpu_torch.apps.multihost",
+           "--device", "cuda", "--backend", "gloo", "--scene",
+           "cornell_full", "--resolution", "480", "--max-raymarch",
+           str(full.max_raymarch), "--max-raytrace", str(full.max_raytrace),
+           "--mesh", "8x1", "--train-steps", "3"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"[10c]   {line}")
+    if proc.returncode != 0 or "MULTIHOST OK" not in proc.stdout:
+        raise AssertionError(f"[10c] multihost rc {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    log(f"[10c] two processes on one card over gloo: {secs:.1f} s "
+        f"(start-up, the kernels loaded, the one-process reference)")
+
+    import torch.distributed as dist
+    scene, env, cam, cfg = multihost.setup(
+        "cornell_full", 480, full.max_raymarch, full.max_raytrace, dev)
+    args = (scene, env, cam, cfg)
+    store = tempfile.mkdtemp(prefix="rt_nccl_", dir=os.path.join(REPO,
+                                                                 "build"))
+    res = {}
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    try:
+        for group in (dist.group.WORLD, None):
+            t0 = time.perf_counter()
+            (out, launches) = launches_of(lambda: multihost.work(
+                *args, pmesh.make_mesh(8, 1, group=group), 2,
+                pmesh.make_mesh(4, 2, group=group), 3))
+            res[group is None] = (out, launches, time.perf_counter() - t0)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    (nc, launches, nsecs), (ref, _, rsecs) = res[False], res[True]
+    same = np.array_equal(nc["albedo"], ref["albedo"])
+    if not (backend == "nccl" and np.array_equal(nc["image"], ref["image"])
+            and np.array_equal(nc["losses"], ref["losses"])
+            and np.allclose(nc["albedo"], ref["albedo"], rtol=1e-5, atol=0)
+            and launches["k1a"]):
+        raise AssertionError(f"[10c] the NCCL world of one differs: "
+                             f"{nc['losses']} vs {ref['losses']}")
+    log(f"[10c] one-process NCCL world ({backend}): the (8,1) still and 3 "
+        f"(4,2) train steps through its all_gather equal the group-less "
+        f"mesh's (image bit-identical, losses {nc['losses'].tolist()} "
+        f"bit-identical, albedo within rtol 1e-5, "
+        f"{'bit-identical' if same else 'not bit-identical'}"
+        f"); {nsecs:.2f} s against {rsecs:.2f} s; K1a {launches['k1a']}")
+    return dict(gloo_s=secs, nccl_s=nsecs, ref_s=rsecs,
+                nccl_k1a=launches["k1a"])
+
+
+def phase_scaling(dev):
+    """10d: ``parallel/scaling.measure`` on (8, 1) contiguous and strided,
+    the Cornell main path at 480x480: the per-tile table, the time
+    imbalance and the march-trip imbalance of each layout."""
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    out = {}
+    for layout in ("contiguous", "strided"):
+        rep = pscaling.measure(scene, env, cam, main_config(),
+                               pmesh.make_mesh(8, 1), iters=SCALING_ITERS,
+                               layout=layout)
+        trips = np.array([t.march_iters for t in rep.tiles], float)
+        trip_imb = float((trips.max() - trips.mean()) / trips.mean() * 100)
+        out[layout] = dict(imbalance_pct=rep.imbalance_pct,
+                           trip_imbalance_pct=trip_imb,
+                           t_single=rep.t_single, t_sharded=rep.t_sharded,
+                           virtual=rep.virtual)
+        log(f"[10d] scaling, (8,1) {layout}:")
+        for line in rep.table().splitlines():
+            log(f"[10d]   {line}")
+    log(f"[10d] imbalance (time) contiguous "
+        f"{out['contiguous']['imbalance_pct']:.1f}% -> strided "
+        f"{out['strided']['imbalance_pct']:.1f}%; (longest primary march) "
+        f"{out['contiguous']['trip_imbalance_pct']:.1f}% -> "
+        f"{out['strided']['trip_imbalance_pct']:.1f}%; the JAX package "
+        f"records ~35% -> ~2% on its own device (a TPU/CPU figure, not a "
+        f"target)")
+    return out
+
+
+def phase_mesh_train(dev, train_8e):
+    """10e: the train step on the (4, 2) mesh at full width (Cornell full
+    480x480, 8 bounces, albedo only, dual buffer, Adam at 0.01 toward a
+    render of the true scene): 1 + MESH_TRAIN_STEPS timed steps, s/step
+    next to 8e's one-card step. Then one step of 8e's (``mesh`` None,
+    materials only) against a 1 x 1 mesh's from the same start: the loss
+    bit-identical, the scene within rtol 1e-5 (``materials_at``'s
+    backward adds with atomics)."""
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    cfg = grad_config(8)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+    target = ptrain.render_pixels(scene, env, cam, pid, cfg, spp=1,
+                                  sample_offset=10_000,
+                                  differentiable=False)
+    start = scene.replace(albedo=scene.albedo * 0.8)
+    step = ptrain.make_sharded_train_step(
+        env, cam, cfg, pmesh.make_mesh(4, 2), spp=1,
+        param_filter=ptrain.albedo_only_filter)
+    ts = ptrain.make_train_state(start, ptrain.adam(0.01))
+    ts, _ = step(ts, target)
+    march_kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TRAIN_STEPS):
+        ts, loss = step(ts, target)
+    torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t0) / MESH_TRAIN_STEPS
+    launches = dict(march_kernel.LAUNCHES)
+    if not (np.isfinite(float(loss)) and launches["k1a"]
+            and sum(launches.values()) == launches["k1a"]):
+        raise AssertionError(f"[10e] loss {float(loss)}, launches "
+                             f"{launches}")
+    per = launches["k1a"] / MESH_TRAIN_STEPS
+    log(f"[10e] train step on the (4,2) mesh, Cornell full 480x480, 8 "
+        f"bounces, albedo only: {s_step:.4f} s/step over "
+        f"{MESH_TRAIN_STEPS} steps (8e's one-card step {train_8e:.4f}); K1a "
+        f"{per:g} launches a step; loss {float(loss):.6f}")
+
+    outs = []
+    for mesh in (None, pmesh.make_mesh(1, 1)):
+        st = ptrain.make_sharded_train_step(
+            env, cam, cfg, mesh, spp=1,
+            param_filter=ptrain.material_only_filter)
+        t = ptrain.make_train_state(start, ptrain.adam(0.01))
+        outs.append(st(t, target))
+    (a, la), (b, lb) = outs
+    pa, pb = scenelib.params(a.scene), scenelib.params(b.scene)
+    same = all(same_bits(x, y) for x, y in zip(pa, pb))
+    if not (same_bits(la, lb) and all(
+            torch.allclose(x, y, rtol=1e-5, atol=0) for x, y in zip(pa, pb))):
+        raise AssertionError("[10e] the 1x1 mesh's step differs from 8e's")
+    log(f"[10e] a 1x1 mesh's step against 8e's (mesh None): loss "
+        f"bit-identical, the scene within rtol 1e-5 "
+        f"({'bit-identical' if same else 'not bit-identical: atomics'})")
+    return dict(s=s_step, s_8e=train_8e, launches=per, one_by_one_same=same)
+
+
+def phase_item16(dev):
+    """10f: ``apps.denoise_demo.run`` at 768x432 on the card, DENOISE_STEPS
+    steps timed; DENOISE_HELD steps within 1e-5 of the same steps on the
+    CPU; ``calc_normal_tetrahedron`` on the card against the CPU on the
+    Cornell full box (atol 2e-4: the estimate differences distances 0.003
+    apart); the share of 2^22 quotients on which the card's division by a
+    host scalar, and by a tensor on the card, rounds apart from the
+    CPU's."""
+    denoise_demo.run(steps=2, device=dev)
+    secs, _ = timed_s(lambda: denoise_demo.run(steps=DENOISE_STEPS,
+                                               device=dev))
+    got = denoise_demo.run(steps=DENOISE_HELD, device=dev)
+    ref = denoise_demo.run(steps=DENOISE_HELD, device="cpu")
+    err = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+    if err > 1e-5:
+        raise AssertionError(f"[10f] denoise demo card vs CPU: {err}")
+    scene = cornell.full_scene(dev)
+    rng = np.random.default_rng(0)
+    p = torch.as_tensor(rng.uniform(-1, 1, (4096, 3)).astype(np.float32),
+                        device=dev)
+    idx, _ = scenelib.nearest(scene, p)
+    n_card = scenelib.calc_normal_tetrahedron(scene, idx, p)
+    n_cpu = scenelib.calc_normal_tetrahedron(cornell.full_scene("cpu"),
+                                             idx.cpu(), p.cpu())
+    nerr = float((n_card.cpu() - n_cpu).abs().max())
+    if nerr > 2e-4:
+        raise AssertionError(f"[10f] tetrahedron normal card vs CPU {nerr}")
+    ms = secs / DENOISE_STEPS * 1e3
+    # why the demo divides by tensors on the card: CUDA's division by a
+    # host scalar is a multiply by its reciprocal
+    x = torch.rand(1 << 22, generator=torch.Generator().manual_seed(0)) * 1e3
+    xc = x.to(dev)
+    apart = {d: (float(((xc / d).cpu() != x / d).float().mean()),
+                 float(((xc / torch.tensor(d, device=dev)).cpu() != x / d)
+                       .float().mean())) for d in (768.0, 432.0, 480.0)}
+    log(f"[10f] denoise demo 768x432 on the card: {ms:.4f} ms a step over "
+        f"{DENOISE_STEPS} steps; {DENOISE_HELD} steps within {err:.3e} of "
+        f"the CPU's; calc_normal_tetrahedron at 4096 points within "
+        f"{nerr:.3e} of the CPU's; x / d on the card apart from the CPU's "
+        f"on (a host scalar d, a tensor d on the card) of 2^22 values: "
+        + ", ".join(f"d={d:g} {a:.5f} / {b:.5f}" for d, (a, b)
+                    in apart.items()))
+    return dict(ms_step=ms, err=err, normal_err=nerr, division=apart)
+
+
+def sharded_phases(dev, train_8e):
+    """10a-10f. Returns what the kernels line reads."""
+    t0 = time.perf_counter()
+    stills = phase_sharded_stills(dev)
+    frames = phase_sharded_frames(dev)
+    procs = phase_sharded_processes(dev)
+    scaling_out = phase_scaling(dev)
+    train = phase_mesh_train(dev, train_8e)
+    item16 = phase_item16(dev)
+    log(f"[10] distributed and item 16 phases ({card_line()}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(stills=stills, frames=frames, procs=procs,
+                scaling=scaling_out, train=train, item16=item16)
+
+
 def main():
     dev = phase_device()
     build_s = phase_build()
@@ -2952,6 +3391,7 @@ def main():
         {mxu: mega_cd[f"{GLASS_CALLS}, {k}"]["supports"]
          for mxu, k in ((False, "K1c"), (True, "K1d"))})
     del cornell_rec, glass_rec
+    shard = sharded_phases(dev, grads["train"]["s"])
     err_a = max(err_a, grads["err_a"])
     err_b = max(err_b, grads["err_b"])
     err_b = max(err_b, *(v["err"] for v in nee["ab"].values()))
@@ -3083,7 +3523,7 @@ def main():
         return e
     per_frame = lambda rp: (comp["reproj"][rp][0]["launches"]
                             / len(REPROJECT_SCRIPT))
-    log(json.dumps({"kernels": [
+    kernels = [
         compaction(megakernel(analytic(entry(
             "march_k1a", "march.cu", f"{TPU_KERNEL}:297", launch_a, err_a,
             ka_ms, pa_ms, bound("k1a")), ("cornell 480x480",)),
@@ -3115,7 +3555,20 @@ def main():
             lambda k: "K1d" in k, ("glass 1920x1080, K1d",)),
         entry("fma_chains_k2", "speedlight.cu",
               "raytracingpbr_tpu/utils/speedlight.py:94", launch_2, err_2,
-              k2_ms, k2_plain, (k2_bound, "operations"))]}))
+              k2_ms, k2_plain, (k2_bound, "operations"))]
+    # the sharded paths' launches (10a: a pass of each mesh; 10b: a frame;
+    # 10c: the NCCL world's run; 10e: a mesh train step)
+    kernels[0]["sharded"] = {
+        "still_launches_per_pass": {k: v["k1a_per_pass"]
+                                    for k, v in shard["stills"].items()},
+        "frame_launches_per_frame": {
+            k: v["k1a_per_frame"] for k, v in shard["frames"].items()
+            if "k1a_per_frame" in v},
+        "nccl_world_launches": shard["procs"]["nccl_k1a"],
+        "mesh_train_launches_per_step": shard["train"]["launches"]}
+    kernels[1]["sharded"] = {"engine_reprojected_launches_per_frame": shard[
+        "frames"]["engine (8,1) strided, reprojected"]["k1b_per_frame"]}
+    log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,7 @@ from .core.types import Camera, FrameState, Rays
 from .ops.ibl import Environment
 from .ops.scene import _BUFFERS, Scene
 from .ops.sdf import BunnyMLP
+from .parallel.render import local_rows, map_rows
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -52,6 +53,13 @@ def scene_from_jax(scene, device=None) -> Scene:
                  **{k: _t(getattr(scene, k), device) for k in _BUFFERS})
 
 
+def scene_to_numpy(scene: Scene) -> dict:
+    """The port's scene's float buffers as numpy arrays, by the JAX
+    ``Scene``'s field names (``jax_scene.replace(**...)`` carries a
+    trained scene back)."""
+    return {k: getattr(scene, k).detach().cpu().numpy() for k in _BUFFERS}
+
+
 def camera_from_jax(cam, device=None) -> Camera:
     device = resolve(device)
     return Camera(*(_t(getattr(cam, f.name), device)
@@ -76,9 +84,19 @@ def rays_from_jax(rays, device=None) -> Rays:
                 _t(rays.color, device), _t(rays.depth, device, torch.int32))
 
 
-def frame_state_from_jax(state, device=None) -> FrameState:
+def frame_state_from_jax(state, device=None, mesh=None) -> FrameState:
     """A JAX ``FrameState`` -> the port's. ``frame`` and the uint32
-    ``respawn`` counter become int64."""
+    ``respawn`` counter become int64.
+
+    With a ``mesh`` (``parallel/mesh.Mesh``), ``state`` is one the JAX
+    package keeps sharded over a mesh of as many tiles (its pixel-major
+    leaves in (tile, slot) order, as ``render_frame_sharded`` leaves them)
+    and the result is this process's rows of it. A JAX state in image
+    order goes to the port's rows through
+    ``parallel/render.shard_frame_state`` (``shard_pixels``) instead."""
+    if mesh is not None:
+        return map_rows(frame_state_from_jax(state, device),
+                        lambda x: local_rows(x, mesh))
     device = resolve(device)
     return FrameState(
         rays=rays_from_jax(state.rays, device),

@@ -1,5 +1,6 @@
 """Postprocess (port of ``raytracingpbr_tpu/ops/post.py``): accumulation
-mean, exposure / gamma, fitted ACES, the adaptive-sampling noise metric."""
+mean, exposure / gamma, fitted ACES, the adaptive-sampling noise metric,
+and the hole-filling denoiser with its dropout-noise injector."""
 from __future__ import annotations
 
 import torch
@@ -76,3 +77,45 @@ def post_process(accum: torch.Tensor, cfg: RenderConfig, exposure=1.0,
         [brightness(diff), torch.ones_like(diff[..., 0])], dim=-1)
     noise = diff_accum[..., 0] / diff_accum[..., 1]
     return pixels, diff_accum, noise
+
+
+def denoise(pixels_in: torch.Tensor, pixels_out: torch.Tensor,
+            threshold: float = 0.2, blend: float = 0.2) -> torch.Tensor:
+    """The hole-filling denoiser prototype
+    (``examples/denoise/denoise_test_1.py:86-118``): blend ``in + (out -
+    in) * blend``, and replace each pixel darker than ``threshold`` by the
+    mean of the neighbours of its 4-neighbourhood in ``pixels_out`` that
+    are brighter than ``threshold`` (edges clamped), where it has any.
+    ``pixels_in`` / ``pixels_out``: (H, W, 3) current frame and feedback
+    buffer. The reference reads its ``j+1`` neighbour twice; this is the
+    intended 4-neighbourhood, as in the JAX package."""
+    col = pixels_in + (pixels_out - pixels_in) * blend
+    h, w = pixels_in.shape[0], pixels_in.shape[1]
+    dev = pixels_in.device
+
+    def shift(img, di, dj):
+        # clamp-to-edge neighbour fetch over the whole image
+        ii = torch.clamp(torch.arange(h, device=dev) + di, 0, h - 1)
+        jj = torch.clamp(torch.arange(w, device=dev) + dj, 0, w - 1)
+        return img[ii][:, jj]
+
+    acc = torch.zeros_like(pixels_in)
+    cnt = torch.zeros(pixels_in.shape[:-1] + (1,), dtype=pixels_in.dtype,
+                      device=dev)
+    for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        nb = shift(pixels_out, di, dj)
+        good = (brightness(nb) > threshold)[..., None]
+        acc = acc + torch.where(good, nb, torch.zeros_like(nb))
+        cnt = cnt + good.to(cnt.dtype)
+    filled = acc / torch.clamp_min(cnt, 1.0)
+    dark = (brightness(pixels_in) < threshold)[..., None] & (cnt > 0)
+    return torch.where(dark, filled, col)
+
+
+def inject_dropout_noise(pixels: torch.Tensor, u: torch.Tensor,
+                         keep: float = 0.5) -> torch.Tensor:
+    """Unbiased multiplicative dropout that exercises the denoiser
+    (``denoise_test_1.py:75-83``): a pixel becomes 0 where ``u >= keep``,
+    else ``pixels / keep``."""
+    mask = (u < keep).to(pixels.dtype)[..., None]
+    return pixels * mask / keep

@@ -381,6 +381,15 @@ def calc_normal(scene: Scene, idx: torch.Tensor,
     return g / torch.linalg.vector_norm(g, dim=-1, keepdim=True)
 
 
+def calc_normal_tetrahedron(scene: Scene, idx: torch.Tensor,
+                            p: torch.Tensor,
+                            h: float = 0.5773 * 0.005) -> torch.Tensor:
+    """Parity normal: the reference's 4-tap tetrahedron estimate of the
+    selected object's SDF (``sdf.tetrahedron_normal``)."""
+    return sdflib.tetrahedron_normal(lambda q: sd_object(scene, idx, q), p,
+                                     h)
+
+
 def animate(scene: Scene, frame, spin_axis=(0.0, 0.0, 1.0),
             period: float = 120.0, bob: float = 0.1) -> Scene:
     """Animation of the bunny scenes: after the object rotation, spin about

@@ -197,3 +197,19 @@ def to_object_space(p, position, matrix, offset=None):
 def bake_matrices(rotation_deg: torch.Tensor) -> torch.Tensor:
     """Euler degrees (n, 3) -> rotation matrices (n, 3, 3)."""
     return rotate_euler(radians(rotation_deg))
+
+
+def tetrahedron_normal(sd_fn, p: torch.Tensor,
+                       h: float = 0.5773 * 0.005) -> torch.Tensor:
+    """The reference's 4-tap tetrahedron gradient estimate
+    (``src/sdf.py:77-87``), normalized: ``sum_k e_k sd(p + e_k h)`` over
+    the tetrahedron's corners ``e_k``. Kept for parity; the renderer's
+    normals are autograd's (``scene.calc_normal``). ``sd_fn``: (..., 3)
+    -> (...,) distance."""
+    e = torch.tensor([[1.0, -1.0, -1.0], [-1.0, -1.0, 1.0],
+                      [-1.0, 1.0, -1.0], [1.0, 1.0, 1.0]], dtype=p.dtype,
+                     device=p.device)
+    n = torch.zeros_like(p)
+    for k in range(4):
+        n = n + e[k] * sd_fn(p + e[k] * h)[..., None]
+    return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)

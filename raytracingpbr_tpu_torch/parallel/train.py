@@ -1,12 +1,18 @@
 """Inverse rendering: pixel-loss gradients through the differentiable
-megakernel to the scene's parameters, and a train step (port of
-``raytracingpbr_tpu/parallel/train.py``).
+megakernel to the scene's parameters, and a train step over a mesh (port
+of ``raytracingpbr_tpu/parallel/train.py``).
 
-One process, one card: the step renders and backpropagates every pixel
-of the image and all of its samples. The JAX package's step splits the
-pixels and samples over a device mesh and averages the gradients with
-``pmean``; that all-reduce arrives with the distributed port (ROADMAP
-Queue 1, item 15), and asking for a process group raises until then.
+The step splits the pixels over the mesh's tiles and the sample ids over
+its sample ranks, as the JAX step does under ``shard_map``, and averages
+the ranks' gradients and losses where JAX takes ``pmean``. A process's
+ranks share its device, so it renders them as one batch and
+backpropagates the sum of their losses; the processes' gradient sums are
+gathered (``mesh.all_gather_rows``) and added in process order, the
+ranks' losses in mesh-rank order. Every process so holds the same scene
+after a step. The loss's bits do not depend on how the ranks are spread
+over processes; the gradient's last bits do (a batch adds its lanes'
+contributions in its own order), and on the card ``materials_at``'s
+backward adds with atomics, whose order varies from run to run.
 
 ``optax.adam`` is ``torch.optim.Adam`` over the scene's float buffers
 (``scene.params``), stepped in place; ``optax.cosine_decay_schedule`` is
@@ -27,6 +33,8 @@ from ..ops import integrator as integ
 from ..ops import scene as scenelib
 from ..ops.ibl import Environment
 from ..ops.scene import Scene
+from .mesh import Mesh, all_gather_rows
+
 
 def render_pixels(scene: Scene, env: Environment, cam: Camera,
                   pixel_id: torch.Tensor, cfg: RenderConfig, spp: int,
@@ -98,19 +106,26 @@ def make_train_state(scene: Scene, optimizer) -> TrainState:
 
 
 def make_sharded_train_step(
-    env: Environment, cam: Camera, cfg: RenderConfig, group=None,
-    spp: int = 1, param_filter: Optional[Callable[[Scene], Scene]] = None,
+    env: Environment, cam: Camera, cfg: RenderConfig,
+    mesh: Optional[Mesh] = None, spp: int = 1,
+    param_filter: Optional[Callable[[Scene], Scene]] = None,
     dual_buffer: bool = True,
 ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
-    """The train step on one process: ``step(ts, target) -> (ts, loss)``
-    with ``target`` the flat (N, 3) linear-radiance image.
+    """The train step over ``mesh``: ``step(ts, target) -> (ts, loss)``
+    with ``target`` the flat (N, 3) linear-radiance image, whole on every
+    process.
 
-    The step renders every pixel with sample ids from ``step * 2 * spp``
-    (the JAX step's block for tile and sample rank 0), takes the scene's
-    gradient by scan-AD, applies ``param_filter`` to it (a function of a
-    Scene of gradients, e.g. :func:`param_mask`'s; the frozen fields' zero
-    gradients leave Adam's update of them exactly 0) and steps the
-    optimizer and its schedule.
+    Mesh rank ``(ti, si)`` renders the contiguous tile ``ti * (N // tiles)
+    + arange(N // tiles)`` with sample ids from ``base = (step * samples +
+    si) * 2 * spp`` (the B buffer, and A from ``base + spp``) and takes the
+    scene's gradient of its tile's loss by scan-AD. The gradients and
+    losses are averaged over the ranks (module docstring);
+    ``param_filter`` (a function of a Scene of gradients, e.g.
+    :func:`param_mask`'s) is applied to the mean, whose frozen fields'
+    zero gradients leave Adam's update of them exactly 0, and the
+    optimizer and its schedule step. ``mesh`` None is a 1 x 1 mesh of
+    this process alone: one rank renders every pixel from sample id
+    ``step * 2 * spp``.
 
     ``dual_buffer`` (default on) renders two independent sample sets A and
     B and differentiates the surrogate ``mean(2 (A - target) B)``, whose
@@ -122,26 +137,34 @@ def make_sharded_train_step(
     When the filter lets ``matrix`` or ``rotation`` train (no filter, or
     one that keeps them), the updated scene drops its signed-permutation
     records (``rot_perm``), as ``scene.bake`` does: the march kernels read
-    a permutation's matrix from them, which an update leaves stale.
-
-    ``group``: a process group to average the gradient over; not ported
-    (ROADMAP Queue 1, item 15), so anything but None raises."""
-    if group is not None:
-        raise NotImplementedError(
-            "the train step's all-reduce over a process group is not ported "
-            "yet (ROADMAP Queue 1, item 15)")
+    a permutation's matrix from them, which an update leaves stale."""
+    mesh = mesh if mesh is not None else Mesh(1, 1)
+    n, tiles, samples = cfg.num_pixels, mesh.tiles, mesh.samples
+    assert n % tiles == 0, (n, tiles)
+    per = n // tiles
     keep = getattr(param_filter, "keep", None)
     trains_matrix = (param_filter is None or keep is None
                      or bool({"matrix", "rotation"} & set(keep)))
 
-    def train_step(ts: TrainState, target_flat: torch.Tensor):
-        scene = ts.scene
+    def local_grad(scene: Scene, step: int, target_flat):
+        """This process's ranks, rendered as one batch: the sum of their
+        gradients (flat, every float buffer in order) and their losses."""
+        ranks = mesh.local_ranks()
         leaves = [v.detach().requires_grad_(True)
                   for v in scenelib.params(scene)]
         sc = scenelib.with_params(scene, leaves)
-        pixel_id = torch.arange(cfg.num_pixels, dtype=torch.int64,
-                                device=scene.device)
-        base = ts.step * 2 * spp
+        tile = [mesh.coords(r)[0] for r in ranks]
+        pixel_id = torch.cat([ti * per + torch.arange(
+            per, dtype=torch.int64, device=scene.device) for ti in tile])
+        target = torch.cat([target_flat[ti * per:(ti + 1) * per]
+                            for ti in tile])
+        bases = [(step * samples + mesh.coords(r)[1]) * 2 * spp
+                 for r in ranks]
+        base = bases[0] if len(set(bases)) == 1 else torch.cat([
+            torch.full((per,), b, dtype=torch.int64, device=scene.device)
+            for b in bases])
+        # each rank's loss is the mean over its own tile
+        per_rank = lambda x: x.reshape(len(ranks), -1).mean(1)
         img_b = render_pixels(sc, env, cam, pixel_id, cfg, spp=spp,
                               sample_offset=base)
         if dual_buffer:
@@ -149,16 +172,36 @@ def make_sharded_train_step(
                 img_a = render_pixels(scene, env, cam, pixel_id, cfg,
                                       spp=spp, sample_offset=base + spp,
                                       differentiable=False)
-            resid = img_a - target_flat
-            surrogate = torch.mean(2.0 * resid * img_b)
-            loss = torch.mean(resid * (img_b.detach() - target_flat))
+            resid = img_a - target
+            surrogate = per_rank(2.0 * resid * img_b).sum()
+            losses = per_rank(resid * (img_b.detach() - target))
         else:
-            surrogate = torch.mean((img_b - target_flat) ** 2)
-            loss = surrogate.detach()
+            surrogate = per_rank((img_b - target) ** 2).sum()
+            losses = per_rank((img_b.detach() - target) ** 2)
         grads = torch.autograd.grad(surrogate, leaves, allow_unused=True)
-        g = scenelib.with_params(scene, [
-            torch.zeros_like(v) if d is None else d
-            for v, d in zip(leaves, grads)])
+        return torch.cat([(torch.zeros_like(v) if d is None else d)
+                          .reshape(-1) for v, d in zip(leaves, grads)]
+                         )[None], losses
+
+    def mean_over(local: torch.Tensor, count: int) -> torch.Tensor:
+        """Every process's rows of ``local``, added in process (and so
+        mesh-rank) order, over ``count``."""
+        rows = all_gather_rows(mesh, local)
+        total = rows[0]
+        for r in range(1, rows.shape[0]):
+            total = total + rows[r]
+        return total / count
+
+    def train_step(ts: TrainState, target_flat: torch.Tensor):
+        scene = ts.scene
+        flat, losses = local_grad(scene, ts.step, target_flat)
+        flat = mean_over(flat, mesh.size)
+        loss = mean_over(losses, mesh.size)
+        grads, at = [], 0
+        for v in scenelib.params(scene):
+            grads.append(flat[at:at + v.numel()].view_as(v))
+            at += v.numel()
+        g = scenelib.with_params(scene, grads)
         if param_filter is not None:
             g = param_filter(g)
         opt, schedule = ts.opt_state

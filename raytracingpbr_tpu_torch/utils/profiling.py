@@ -1,13 +1,77 @@
-"""Structured metrics logging (port of the part of
-``raytracingpbr_tpu/utils/profiling.py`` that the renderer apps use): one
-JSON object per frame, appended to a JSONL file."""
+"""Observability (port of ``raytracingpbr_tpu/utils/profiling.py``): a
+steady-state timing harness, an optional profiler trace around a section,
+and structured metrics, one JSON object per frame appended to a JSONL
+file."""
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
+import torch
+
+
+def _cuda_devices(out, found: set) -> set:
+    """The CUDA devices of the tensors in ``out`` (tensors, sequences,
+    dicts, dataclasses and named tuples of them)."""
+    if isinstance(out, torch.Tensor):
+        if out.device.type == "cuda":
+            found.add(out.device)
+    elif isinstance(out, (tuple, list)):
+        for v in out:
+            _cuda_devices(v, found)
+    elif isinstance(out, dict):
+        for v in out.values():
+            _cuda_devices(v, found)
+    elif dataclasses.is_dataclass(out) and not isinstance(out, type):
+        for f in dataclasses.fields(out):
+            _cuda_devices(getattr(out, f.name), found)
+    return found
+
+
+def _wait(out) -> None:
+    """Wait for the card(s) that hold the outputs (nothing on the CPU,
+    where a call returns when its work is done)."""
+    for dev in _cuda_devices(out, set()):
+        torch.cuda.synchronize(dev)
+
+
+def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 10,
+            **kw) -> float:
+    """Steady-state seconds a call of ``fn(*args, **kw)``: ``warmup``
+    calls (kernel builds, caches), then ``iters`` calls timed on the host
+    clock between two waits for the device of the outputs, so the card's
+    queued work is inside the window. On the CPU, wall time."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args, **kw)
+    _wait(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args, **kw)
+    _wait(out)
+    return (time.perf_counter() - t0) / iters
+
+
+@contextlib.contextmanager
+def xprof_trace(logdir: Optional[str]):
+    """A ``torch.profiler`` trace of the section (the CPU, and the card
+    where there is one), written as a Chrome trace to
+    ``logdir/trace.json``; nothing when ``logdir`` is None."""
+    if not logdir:
+        yield None
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 class MetricsLogger:

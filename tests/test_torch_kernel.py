@@ -765,3 +765,149 @@ def test_reproject_on_the_card_against_the_cpu(cuda_device):
     assert float(ok.all(dim=1).float().mean()) >= 0.999
     ok = torch.isclose(got.hit_t.cpu(), ref.hit_t, rtol=1e-5, atol=1e-6)
     assert float(ok.float().mean()) >= 0.999
+
+
+# --- the sharded paths (parallel/) -------------------------------------------
+
+def _sharded_setup(device, res=(64, 64)):
+    cfg = cornell.full_config().replace(resolution=res, max_raytrace=16)
+    return (cornell.full_scene(device), cornell.sky(device),
+            cornell.full_camera(device), cfg)
+
+
+@pytest.mark.parametrize("tiles,samples,layout", [
+    (8, 1, "contiguous"), (8, 1, "strided"), (4, 2, "contiguous"),
+    (2, 4, "contiguous")])
+def test_sharded_still_on_the_card(cuda_device, tiles, samples, layout):
+    """``render_image_sharded`` through K1a: a tiles-only mesh gives
+    ``render_image``'s bits under both layouts, a sample mesh is within
+    atol 1e-5 / rtol 1e-4; K1a launches, no other march kernel."""
+    from raytracingpbr_tpu_torch.ops.integrator import render_image
+    from raytracingpbr_tpu_torch.parallel import mesh as meshlib
+    from raytracingpbr_tpu_torch.parallel import render as prender
+    scene, env, cam, cfg = _sharded_setup(cuda_device)
+    single = render_image(scene, env, cam, cfg, spp=4, tonemapped=False)
+    march_kernel.reset_launches()
+    got = prender.render_image_sharded(
+        scene, env, cam, cfg, meshlib.make_mesh(tiles, samples), spp=4,
+        tonemapped=False, layout=layout)
+    torch.cuda.synchronize()
+    assert march_kernel.LAUNCHES["k1a"] > 0
+    assert sum(march_kernel.LAUNCHES.values()) == march_kernel.LAUNCHES["k1a"]
+    if samples == 1:
+        assert torch.equal(got, single)
+    torch.testing.assert_close(got, single, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_sharded_frames_on_the_card(cuda_device, layout):
+    """Four frames on the (8, 1) mesh, then eight with the adaptive gate:
+    pixels and accumulator ``render_frame``'s bit for bit, and the same
+    pixels stopped."""
+    from raytracingpbr_tpu_torch.core.types import make_frame_state
+    from raytracingpbr_tpu_torch.ops.integrator import render_frame
+    from raytracingpbr_tpu_torch.parallel import mesh as meshlib
+    from raytracingpbr_tpu_torch.parallel import render as prender
+    scene, env, cam, cfg = _sharded_setup(cuda_device)
+    mesh = meshlib.make_mesh(8, 1)
+    for c, count in ((cfg, 4), (cfg.replace(adaptive_sampling=True,
+                                            noise_threshold=0.15), 8)):
+        st = make_frame_state(c.num_pixels, cuda_device)
+        sm = prender.shard_frame_state(st, mesh, layout)
+        for _ in range(count):
+            px, st = render_frame(scene, env, cam, st, c)
+            pm, sm = prender.render_frame_sharded(scene, env, cam, sm, c,
+                                                  mesh, layout=layout)
+        un = lambda x: prender.unshard_pixels(x, 8, layout)
+        assert torch.equal(un(pm), px)
+        assert torch.equal(un(sm.accum), st.accum)
+        if c.adaptive_sampling:
+            stopped = st.noise <= c.noise_threshold
+            assert bool(stopped.any())
+            assert torch.equal(un(sm.noise) <= c.noise_threshold, stopped)
+
+
+def test_sharded_reprojection_on_the_card(cuda_device):
+    """Three strided frames with ``cfg.reprojection``, a move and a
+    reprojected refresh: the accumulator within rtol 1e-5 of
+    ``render_frame(prev_cam=...)``'s on at least 99.9% of pixels (the
+    warp's atomic adds reorder a pixel's sums)."""
+    import dataclasses
+
+    from raytracingpbr_tpu_torch.core.types import make_frame_state
+    from raytracingpbr_tpu_torch.ops.integrator import render_frame
+    from raytracingpbr_tpu_torch.parallel import mesh as meshlib
+    from raytracingpbr_tpu_torch.parallel import render as prender
+    scene, env, cam, cfg = _sharded_setup(cuda_device)
+    cfg = cfg.replace(reprojection=True)
+    moved = dataclasses.replace(cam, lookfrom=cam.lookfrom + torch.tensor(
+        [0.08, 0.0, 0.0], device=cuda_device))
+    mesh = meshlib.make_mesh(8, 1)
+    st = make_frame_state(cfg.num_pixels, cuda_device)
+    sm = prender.shard_frame_state(st, mesh, "strided")
+    for _ in range(3):
+        _, st = render_frame(scene, env, cam, st, cfg)
+        _, sm = prender.render_frame_sharded(scene, env, cam, sm, cfg, mesh,
+                                             layout="strided")
+    _, st = render_frame(scene, env, moved, st, cfg, refreshing=True,
+                         prev_cam=cam)
+    _, sm = prender.render_frame_sharded(scene, env, moved, sm, cfg, mesh,
+                                         refreshing=True, prev_cam=cam,
+                                         layout="strided")
+    acc = prender.unshard_pixels(sm.accum, 8, "strided")
+    ok = torch.isclose(acc, st.accum, rtol=1e-5, atol=1e-6).all(dim=1)
+    assert float(ok.float().mean()) >= 0.999
+
+
+def test_two_processes_share_the_card():
+    """``apps.multihost`` on the card over gloo (two processes on one
+    card; the gathered tensors staged through host memory): the still
+    bit-identical to one process, two train steps within rtol 1e-5."""
+    import os
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytracingpbr_tpu_torch.apps.multihost",
+         "--backend", "gloo", "--resolution", "64", "--train-steps", "2",
+         "--frames", "2"], cwd=repo, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=repo))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "MULTIHOST OK" in proc.stdout
+
+
+def test_nccl_world_of_one(cuda_device, tmp_path):
+    """A one-process NCCL group: the still and a train step through its
+    collectives (called, not skipped) equal the group-less mesh's."""
+    import torch.distributed as dist
+
+    from raytracingpbr_tpu_torch.parallel import mesh as meshlib
+    from raytracingpbr_tpu_torch.parallel import render as prender
+    from raytracingpbr_tpu_torch.parallel import train as ptrain
+    scene, env, cam, cfg = _sharded_setup(cuda_device, (32, 32))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        out = {}
+        for group in (None, dist.group.WORLD):
+            mesh = meshlib.make_mesh(8, 1, group=group)
+            img = prender.render_image_sharded(scene, env, cam, cfg, mesh,
+                                               spp=2)
+            step = ptrain.make_sharded_train_step(
+                env, cam, cfg.replace(max_raytrace=4),
+                meshlib.make_mesh(4, 2, group=group),
+                param_filter=ptrain.albedo_only_filter)
+            ts = ptrain.make_train_state(scene, ptrain.adam(0.02))
+            ts, loss = step(ts, torch.zeros((cfg.num_pixels, 3),
+                                            device=cuda_device))
+            out[group is None] = (img, loss, ts.scene.albedo)
+        assert dist.get_backend() == "nccl"
+        assert torch.equal(out[True][0], out[False][0])
+        torch.testing.assert_close(out[True][1], out[False][1], rtol=1e-5,
+                                   atol=0)
+        torch.testing.assert_close(out[True][2], out[False][2], rtol=1e-5,
+                                   atol=0)
+    finally:
+        dist.destroy_process_group()

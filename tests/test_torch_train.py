@@ -1,13 +1,13 @@
 """The port's train step (``parallel/train.py``) on the CPU: three steps
 equal to the JAX package's ``make_sharded_train_step`` on a one-device
-mesh, ``tests/test_parallel.py``'s albedo recovery in one process,
-``param_mask``, and the signed-permutation records dropped when the
-matrix trains (the march kernels' pack, mirrored on the CPU, must march
-the updated scene as the plain geometry does)."""
+mesh, ``tests/test_parallel.py``'s albedo recovery in one process, a
+1 x 1 mesh equal to the one-process step bit for bit, ``param_mask``,
+and the signed-permutation records dropped when the matrix trains (the
+march kernels' pack, mirrored on the CPU, must march the updated scene
+as the plain geometry does)."""
 import jax
 import numpy as np
 import optax
-import pytest
 import torch
 
 import raytracingpbr_tpu as rt
@@ -21,6 +21,7 @@ from raytracingpbr_tpu_torch.models import cornell as tcornell
 from raytracingpbr_tpu_torch.ops import scene as tscene
 from raytracingpbr_tpu_torch.ops.scene import ObjectSpec
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE
+from raytracingpbr_tpu_torch.parallel import mesh as meshlib
 from raytracingpbr_tpu_torch.parallel import train as ptrain
 
 from .test_torch_march_groups import _group_fold
@@ -141,10 +142,63 @@ def test_param_mask_zeroes_the_frozen_fields():
         assert out.rot_perm == scene.rot_perm
 
 
-def test_group_raises_naming_item_15():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ptrain.make_sharded_train_step(tr.white_sky(device=CPU),
-                                       port_camera(), CFG, group=object())
+def one_process_step(ts, target, spp):
+    """The one-process step written out: every pixel, sample ids from
+    ``step * 2 * spp``, the dual-buffer surrogate's scan-AD gradient, the
+    albedo filter, Adam."""
+    scene = ts.scene
+    leaves = [v.detach().requires_grad_(True) for v in tscene.params(scene)]
+    sc = tscene.with_params(scene, leaves)
+    pid = torch.arange(CFG.num_pixels)
+    base = ts.step * 2 * spp
+    env, cam = tr.white_sky(device=CPU), port_camera()
+    img_b = ptrain.render_pixels(sc, env, cam, pid, CFG, spp=spp,
+                                 sample_offset=base)
+    with torch.no_grad():
+        img_a = ptrain.render_pixels(scene, env, cam, pid, CFG, spp=spp,
+                                     sample_offset=base + spp,
+                                     differentiable=False)
+    resid = img_a - target
+    loss = torch.mean(resid * (img_b.detach() - target))
+    grads = torch.autograd.grad(torch.mean(2.0 * resid * img_b), leaves,
+                                allow_unused=True)
+    g = ptrain.albedo_only_filter(tscene.with_params(scene, [
+        torch.zeros_like(v) if d is None else d
+        for v, d in zip(leaves, grads)]))
+    opt, schedule = ts.opt_state
+    for v, d in zip(tscene.params(scene), tscene.params(g)):
+        v.grad = d
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    schedule.step()
+    return ptrain.TrainState(scene, ts.opt_state, ts.step + 1), loss
+
+
+def test_one_by_one_mesh_is_the_one_process_step():
+    """A 1 x 1 mesh (and ``mesh=None``) takes the one-process step: one
+    rank renders every pixel from sample id ``step * 2 * spp``, and the
+    mean over one rank changes no bit. Three steps each, loss and every
+    buffer equal bit for bit to the step written out."""
+    target = port_target(spp=2)
+    make = lambda: ptrain.make_train_state(
+        port_scene((0.5, 0.5, 0.5)),
+        ptrain.adam(ptrain.cosine_decay_schedule(0.08, 30, alpha=0.05)))
+    ref = make()
+    runs = {}
+    for mesh in (None, meshlib.make_mesh(1, 1)):
+        step = ptrain.make_sharded_train_step(
+            tr.white_sky(device=CPU), port_camera(), CFG, mesh, spp=2,
+            param_filter=ptrain.albedo_only_filter)
+        runs[mesh] = (step, make())
+    for _ in range(3):
+        ref, want = one_process_step(ref, target, spp=2)
+        for mesh, (step, ts) in runs.items():
+            ts, loss = step(ts, target)
+            runs[mesh] = (step, ts)
+            assert torch.equal(loss, want), mesh
+            for a, b in zip(tscene.params(ts.scene), tscene.params(ref.scene)):
+                assert torch.equal(a, b), mesh
+            assert ts.step == ref.step
 
 
 def test_training_the_matrix_drops_rot_perm():
