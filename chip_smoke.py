@@ -219,7 +219,9 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     Cornell full box at 480x480, spp 4, in one process, on the meshes
     (8, 1) contiguous and strided, (4, 2) and (2, 4): tiles-only meshes
     bit-identical to ``render_image``, sample meshes within atol 1e-5 /
-    rtol 1e-4; ms a pass of each next to the unsharded pass; K1a alone.
+    rtol 1e-4; ms a pass of each next to the unsharded pass; K1a alone;
+    every K1a call of one (4, 2) and one (2, 4) render (a sample a rank)
+    held bit-equal to the plain march.
 10b. sharded frames: the Cornell main path, 4 frames through
     ``render_frame_sharded`` on (8, 1) contiguous and strided, pixels and
     accumulator bit-identical to ``render_frame``; the engine at 768x432
@@ -238,8 +240,10 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     imbalance of each layout, in time and in the longest primary march.
 10e. the train step on the (4, 2) mesh at full width (Cornell full
     480x480, 8 bounces, albedo only): 1 + 5 timed steps, s/step next to
-    8e's; a 1 x 1 mesh's step against 8e's (loss bit-identical, the scene
-    within rtol 1e-5: atomics).
+    8e's; every K1a call of one step held bit-equal to the plain march; a
+    1 x 1 mesh's step, and ``mesh=None``'s, against the one-card step
+    written out (loss bit-identical, the scene within rtol 1e-5:
+    atomics).
 10f. ``apps.denoise_demo.run`` at 768x432 on the card, 100 steps timed, 10
     held within 1e-5 of the CPU; ``scene.calc_normal_tetrahedron`` on the
     card against the CPU; how often the card's division by a host scalar
@@ -2099,17 +2103,17 @@ def record_step(fn):
     return calls
 
 
-def hold_calls(label, calls):
+def hold_calls(label, calls, what="step"):
     """Each recorded call bit-equal to the plain march (kernel and plain
-    both run anew on the recorded inputs). Returns {kind: (calls, max abs
-    err)}."""
+    both run anew on the recorded inputs); ``what`` names the recorded run
+    in the log line. Returns {kind: (calls, max abs err)}."""
     out = {}
     for sc, (o, d, a, i, c) in calls:
         kind = march_kernel.variant(sc, c)
         _, err = compare(sc, o, d, c, a, i)
         n, e = out.get(kind, (0, 0.0))
         out[kind] = (n + 1, max(e, err))
-    log(f"[{label}] every march call of one step bit-equal to the plain "
+    log(f"[{label}] every march call of one {what} bit-equal to the plain "
         f"march: " + ", ".join(f"{k.upper()} {n} calls" for k, (n, _)
                                in sorted(out.items())))
     return out
@@ -2984,7 +2988,10 @@ def phase_sharded_stills(dev):
     ``render_image``: tiles-only meshes bit-identical, sample meshes within
     atol 1e-5 / rtol 1e-4; K1a the only march kernel. Then ms a pass (a
     sample of every pixel) of each, every render timed twice in turns
-    (unsharded, the meshes, the meshes backwards, unsharded)."""
+    (unsharded, the meshes, the meshes backwards, unsharded). On each mesh
+    with sample ranks, every K1a call of one render at spp = its sample
+    ranks (a sample a rank; 460,800 lanes on (4,2), 921,600 on (2,4)) is
+    recorded and held bit-equal to the plain march."""
     scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
                        cornell.full_camera(dev))
     cfg = cornell.full_config()
@@ -3013,6 +3020,18 @@ def phase_sharded_stills(dev):
         if not torch.allclose(img, ref, atol=1e-5, rtol=1e-4):
             raise AssertionError(f"[10a] {label}: max |diff| {err}")
         out[label].update(bit_identical=same, max_abs_diff=err)
+    for tiles, samples, layout in SHARDED_MESHES:
+        if samples == 1:
+            continue
+        label = f"({tiles},{samples}) {layout}"
+        calls = record_step(lambda: prender.render_image_sharded(
+            scene, env, cam, cfg, pmesh.make_mesh(tiles, samples),
+            spp=samples, tonemapped=False, layout=layout))
+        held = hold_calls(f"10a {label}", calls, f"render at spp {samples}")
+        if set(held) != {"k1a"}:
+            raise AssertionError(f"[10a] {label}: calls {held}")
+        out[label].update(held_calls=held["k1a"][0], held_spp=samples,
+                          lanes_per_call=calls[0][1][0].shape[0])
     times = {label: [] for label in runs}
     for label in list(runs) + list(runs)[::-1]:
         times[label].append(timed_s(runs[label])[0])
@@ -3023,6 +3042,10 @@ def phase_sharded_stills(dev):
                  "; bit-identical to render_image" if v["bit_identical"]
                  else f"; within atol 1e-5 / rtol 1e-4 (max |diff| "
                       f"{v['max_abs_diff']:.3e})")
+        if "held_calls" in v:
+            check += (f"; the {v['held_calls']} K1a calls of a render at "
+                      f"spp {v['held_spp']} ({v['lanes_per_call']} lanes "
+                      f"each) bit-equal to the plain march")
         log(f"[10a] Cornell full 480x480, spp {SHARDED_SPP}, {label}: "
             f"{v['ms_per_pass']:.3f} ms a pass (runs "
             f"{', '.join(f'{t:.3f}' for t in v['ms_per_pass_runs'])}; "
@@ -3227,12 +3250,48 @@ def phase_scaling(dev):
     return out
 
 
+def written_out_step(ts, env, cam, cfg, target, param_filter):
+    """The one-card train step written out, as ``tests/test_torch_train.py``
+    writes it: every pixel, sample ids from ``step * 2`` (spp 1), the
+    dual-buffer surrogate's scan-AD gradient, the filter, Adam. Returns
+    (state, loss)."""
+    scene = ts.scene
+    leaves = [v.detach().requires_grad_(True)
+              for v in scenelib.params(scene)]
+    sc = scenelib.with_params(scene, leaves)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64,
+                       device=scene.device)
+    base = ts.step * 2
+    img_b = ptrain.render_pixels(sc, env, cam, pid, cfg, spp=1,
+                                 sample_offset=base)
+    with torch.no_grad():
+        img_a = ptrain.render_pixels(scene, env, cam, pid, cfg, spp=1,
+                                     sample_offset=base + 1,
+                                     differentiable=False)
+    resid = img_a - target
+    loss = torch.mean(resid * (img_b.detach() - target))
+    grads = torch.autograd.grad(torch.mean(2.0 * resid * img_b), leaves,
+                                allow_unused=True)
+    g = param_filter(scenelib.with_params(scene, [
+        torch.zeros_like(v) if d is None else d
+        for v, d in zip(leaves, grads)]))
+    opt, _ = ts.opt_state
+    for v, d in zip(scenelib.params(scene), scenelib.params(g)):
+        v.grad = d
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return ptrain.TrainState(scene, ts.opt_state, ts.step + 1), loss
+
+
 def phase_mesh_train(dev, train_8e):
     """10e: the train step on the (4, 2) mesh at full width (Cornell full
     480x480, 8 bounces, albedo only, dual buffer, Adam at 0.01 toward a
     render of the true scene): 1 + MESH_TRAIN_STEPS timed steps, s/step
-    next to 8e's one-card step. Then one step of 8e's (``mesh`` None,
-    materials only) against a 1 x 1 mesh's from the same start: the loss
+    next to 8e's one-card step; then every K1a call of one more step
+    (460,800 lanes) recorded and held bit-equal to the plain march. Then
+    one step of 8e's kind (materials only) on a 1 x 1 mesh and with
+    ``mesh`` None, each against the step written out
+    (:func:`written_out_step`) from the same start: the loss
     bit-identical, the scene within rtol 1e-5 (``materials_at``'s
     backward adds with atomics)."""
     scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
@@ -3261,28 +3320,41 @@ def phase_mesh_train(dev, train_8e):
         raise AssertionError(f"[10e] loss {float(loss)}, launches "
                              f"{launches}")
     per = launches["k1a"] / MESH_TRAIN_STEPS
+    calls = record_step(lambda: step(ts, target))
+    held = hold_calls("10e (4,2)", calls)
+    if set(held) != {"k1a"} or held["k1a"][0] != per:
+        raise AssertionError(f"[10e] recorded calls {held}, {per} a step")
     log(f"[10e] train step on the (4,2) mesh, Cornell full 480x480, 8 "
         f"bounces, albedo only: {s_step:.4f} s/step over "
         f"{MESH_TRAIN_STEPS} steps (8e's one-card step {train_8e:.4f}); K1a "
-        f"{per:g} launches a step; loss {float(loss):.6f}")
+        f"{per:g} launches a step, the {held['k1a'][0]} calls of one step "
+        f"({calls[0][1][0].shape[0]} lanes each) bit-equal to the plain "
+        f"march; loss {float(loss):.6f}")
 
-    outs = []
-    for mesh in (None, pmesh.make_mesh(1, 1)):
+    fresh = lambda: ptrain.make_train_state(start, ptrain.adam(0.01))
+    ref, want = written_out_step(fresh(), env, cam, cfg, target,
+                                 ptrain.material_only_filter)
+    pref = scenelib.params(ref.scene)
+    same = {}
+    for name, mesh in (("1x1", pmesh.make_mesh(1, 1)), ("None", None)):
         st = ptrain.make_sharded_train_step(
             env, cam, cfg, mesh, spp=1,
             param_filter=ptrain.material_only_filter)
-        t = ptrain.make_train_state(start, ptrain.adam(0.01))
-        outs.append(st(t, target))
-    (a, la), (b, lb) = outs
-    pa, pb = scenelib.params(a.scene), scenelib.params(b.scene)
-    same = all(same_bits(x, y) for x, y in zip(pa, pb))
-    if not (same_bits(la, lb) and all(
-            torch.allclose(x, y, rtol=1e-5, atol=0) for x, y in zip(pa, pb))):
-        raise AssertionError("[10e] the 1x1 mesh's step differs from 8e's")
-    log(f"[10e] a 1x1 mesh's step against 8e's (mesh None): loss "
-        f"bit-identical, the scene within rtol 1e-5 "
-        f"({'bit-identical' if same else 'not bit-identical: atomics'})")
-    return dict(s=s_step, s_8e=train_8e, launches=per, one_by_one_same=same)
+        got, loss = st(fresh(), target)
+        pgot = scenelib.params(got.scene)
+        if not (same_bits(loss.reshape(()), want) and all(
+                torch.allclose(x, y, rtol=1e-5, atol=0)
+                for x, y in zip(pgot, pref))):
+            raise AssertionError(f"[10e] mesh {name}'s step differs from the "
+                                 f"step written out")
+        same[name] = all(same_bits(x, y) for x, y in zip(pgot, pref))
+    log(f"[10e] a 1x1 mesh's step and mesh None's against the one-card step "
+        f"written out, materials only: loss bit-identical, the scene within "
+        f"rtol 1e-5 (" + ", ".join(
+            f"{k}: {'bit-identical' if v else 'not bit-identical: atomics'}"
+            for k, v in same.items()) + ")")
+    return dict(s=s_step, s_8e=train_8e, launches=per,
+                held_calls=held["k1a"][0], one_by_one_same=same)
 
 
 def phase_item16(dev):

@@ -696,6 +696,28 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
     return TraceResult(color, bounces)
 
 
+def sample_sum(scene: Scene, env: Environment, cam: Camera,
+               cfg: RenderConfig, pixel_id: torch.Tensor, first, spp: int,
+               **trace_kw) -> torch.Tensor:
+    """The sum (N, 3) of ``spp`` megakernel samples of each of ``pixel_id``
+    (N,), sample ids ``first + k`` modulo 2**32 (``first`` an int, or an
+    int64 tensor (N,) of each lane's first id), each camera ray drawn
+    through ``rng.sampler4(cfg.low_discrepancy)``. ``trace_kw`` go to
+    :func:`megakernel_trace`."""
+    sampler = rnglib.sampler4(cfg.low_discrepancy)
+    acc = torch.zeros((pixel_id.shape[0], 3), dtype=torch.float32,
+                      device=pixel_id.device)
+    for k in range(spp):
+        idx = (first + k) & _MASK
+        u_cam = sampler(pixel_id, idx, _S_CAMERA, cfg.seed)
+        uv = cameralib.pixel_uv(pixel_id, cfg.width, cfg.height, u_cam[0],
+                                u_cam[1])
+        rays = cameralib.get_ray(cam, uv, u_cam[2], u_cam[3])
+        acc = acc + megakernel_trace(scene, env, rays, pixel_id, idx, cfg,
+                                     **trace_kw).color
+    return acc
+
+
 def render_image(scene: Scene, env: Environment, cam: Camera,
                  cfg: RenderConfig, spp: Optional[int] = None,
                  sample_offset: int = 0, exposure=1.0,
@@ -704,30 +726,19 @@ def render_image(scene: Scene, env: Environment, cam: Camera,
                  restart_at_hit: bool = True,
                  reflect_kill: Optional[bool] = None) -> torch.Tensor:
     """Offline still: the mean of ``spp`` megakernel samples per pixel
-    (sample indices ``sample_offset + s`` modulo 2**32), tonemapped unless
-    ``tonemapped=False``. Each sample draws its camera ray through
-    ``rng.sampler4(cfg.low_discrepancy)``. Runs on the scene's device.
-    ``differentiable`` as in :func:`megakernel_trace`. Returns (H, W, 3),
-    row 0 at the top."""
+    (:func:`sample_sum` from ``sample_offset``), tonemapped unless
+    ``tonemapped=False``. Runs on the scene's device. ``differentiable``
+    as in :func:`megakernel_trace`. Returns (H, W, 3), row 0 at the
+    top."""
     n = cfg.num_pixels
     spp = spp if spp is not None else cfg.samples_per_pixel
-    dev = scene.device
-    pixel_id = torch.arange(n, dtype=torch.int64, device=dev)
-    sampler = rnglib.sampler4(cfg.low_discrepancy)
-    accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    for s in range(spp):
-        idx = (int(sample_offset) + s) & _MASK
-        u_cam = sampler(pixel_id, idx, _S_CAMERA, cfg.seed)
-        uv = cameralib.pixel_uv(pixel_id, cfg.width, cfg.height, u_cam[0],
-                                u_cam[1])
-        rays = cameralib.get_ray(cam, uv, u_cam[2], u_cam[3])
-        out = megakernel_trace(scene, env, rays, pixel_id, idx, cfg,
-                               diffuse_only=diffuse_only,
-                               differentiable=differentiable,
-                               roughness_fresnel=roughness_fresnel,
-                               restart_at_hit=restart_at_hit,
-                               reflect_kill=reflect_kill)
-        accum = accum + out.color
+    pixel_id = torch.arange(n, dtype=torch.int64, device=scene.device)
+    accum = sample_sum(scene, env, cam, cfg, pixel_id, int(sample_offset),
+                       spp, diffuse_only=diffuse_only,
+                       differentiable=differentiable,
+                       roughness_fresnel=roughness_fresnel,
+                       restart_at_hit=restart_at_hit,
+                       reflect_kill=reflect_kill)
     mean = accum / spp
     img = postlib.tonemap(mean, cfg, exposure) if tonemapped else mean
     # flat x-major (W*H) -> (H, W, 3), flipped so row 0 is the top

@@ -25,9 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from ..config import RenderConfig
-from ..core import rng as rnglib
 from ..core.types import Camera, FrameState, Rays
-from ..ops import camera as cameralib
 from ..ops import integrator as integ
 from ..ops import post as postlib
 from ..ops import reproject as reprojectlib
@@ -151,17 +149,8 @@ def render_image_sharded(scene: Scene, env: Environment, cam: Camera,
         first = torch.cat([torch.full((per,), r % samples * spp_local,
                                       dtype=torch.int64, device=dev)
                            for r in ranks])
-    sampler = rnglib.sampler4(cfg.low_discrepancy)
-    acc = torch.zeros((pixel_id.shape[0], 3), dtype=torch.float32,
-                      device=dev)
-    for k in range(spp_local):
-        s = first + k
-        u_cam = sampler(pixel_id, s, integ._S_CAMERA, cfg.seed)
-        uv = cameralib.pixel_uv(pixel_id, cfg.width, cfg.height, u_cam[0],
-                                u_cam[1])
-        rays = cameralib.get_ray(cam, uv, u_cam[2], u_cam[3])
-        acc = acc + integ.megakernel_trace(scene, env, rays, pixel_id, s,
-                                           cfg, **trace_kw).color
+    acc = integ.sample_sum(scene, env, cam, cfg, pixel_id, first,
+                           spp_local, **trace_kw)
     parts = all_gather_rows(mesh, acc).reshape(tiles, samples, per, 3)
     total = parts[:, 0]
     for si in range(1, samples):

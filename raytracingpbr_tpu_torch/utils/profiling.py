@@ -5,7 +5,6 @@ file."""
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import json
 import os
 import time
@@ -15,45 +14,26 @@ import numpy as np
 import torch
 
 
-def _cuda_devices(out, found: set) -> set:
-    """The CUDA devices of the tensors in ``out`` (tensors, sequences,
-    dicts, dataclasses and named tuples of them)."""
-    if isinstance(out, torch.Tensor):
-        if out.device.type == "cuda":
-            found.add(out.device)
-    elif isinstance(out, (tuple, list)):
-        for v in out:
-            _cuda_devices(v, found)
-    elif isinstance(out, dict):
-        for v in out.values():
-            _cuda_devices(v, found)
-    elif dataclasses.is_dataclass(out) and not isinstance(out, type):
-        for f in dataclasses.fields(out):
-            _cuda_devices(getattr(out, f.name), found)
-    return found
-
-
-def _wait(out) -> None:
-    """Wait for the card(s) that hold the outputs (nothing on the CPU,
-    where a call returns when its work is done)."""
-    for dev in _cuda_devices(out, set()):
-        torch.cuda.synchronize(dev)
+def _sync() -> None:
+    """Wait for the card's queued work (nothing without a card, where a
+    call returns when its work is done)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 10,
             **kw) -> float:
     """Steady-state seconds a call of ``fn(*args, **kw)``: ``warmup``
     calls (kernel builds, caches), then ``iters`` calls timed on the host
-    clock between two waits for the device of the outputs, so the card's
-    queued work is inside the window. On the CPU, wall time."""
-    out = None
+    clock between two waits for the card, so its queued work is inside the
+    window. On the CPU, wall time."""
     for _ in range(warmup):
-        out = fn(*args, **kw)
-    _wait(out)
+        fn(*args, **kw)
+    _sync()
     t0 = time.perf_counter()
     for _ in range(iters):
-        out = fn(*args, **kw)
-    _wait(out)
+        fn(*args, **kw)
+    _sync()
     return (time.perf_counter() - t0) / iters
 
 

@@ -334,6 +334,28 @@ def test_sharded_image_matches_jax(setup, jax_setup, tiles, samples, layout):
     assert_image_bar(nn(got), np.asarray(ref))
 
 
+def test_low_discrepancy_sharded_still_is_render_image(setup, jax_setup):
+    """Under ``cfg.low_discrepancy`` the port's tiles-only sharded still
+    keeps ``render_image``'s bits: both draw their camera rays through
+    ``rng.sampler4``. The JAX sharded still draws ``uniform4`` whatever
+    the flag (``raytracingpbr_tpu/parallel/render.py:104``), so there the
+    flag leaves the image as it was, unlike JAX's ``render_image``."""
+    scene, env, cam, cfg = setup
+    ld = cfg.replace(low_discrepancy=True)
+    single = integ.render_image(scene, env, cam, ld, spp=4, tonemapped=False)
+    sharded = prender.render_image_sharded(
+        scene, env, cam, ld, meshlib.make_mesh(8, 1), spp=4,
+        tonemapped=False, layout="strided")
+    assert torch.equal(sharded, single)
+    assert not torch.equal(single, integ.render_image(
+        scene, env, cam, cfg, spp=4, tonemapped=False))
+    m = jmesh.make_mesh(tiles=8, samples=1)
+    j_ld, j_plain = (np.asarray(jrender.render_image_sharded(
+        *jax_setup, c, m, spp=4, tonemapped=False))
+        for c in (JCFG.replace(low_discrepancy=True), JCFG))
+    np.testing.assert_array_equal(j_ld, j_plain)
+
+
 def _lanes_close(a, b, rtol=1e-4, atol=1e-6):
     ok = np.isclose(a, b, rtol=rtol, atol=atol)
     return ok.reshape(ok.shape[0], -1).all(axis=1)
