@@ -17,7 +17,11 @@ scene's own render), held to the one-process mesh's losses and albedo
 at rtol 1e-5 (a process adds its batch's gradients in its own order);
 with ``--frames N``, N reprojected frames on ``--mesh`` (bit-identical on
 the CPU; on the card the warp's atomics hold it to rtol 1e-5 on 99.9% of
-pixels). Prints ``MULTIHOST OK`` on success.
+pixels); with ``--scaling``, ``parallel/scaling.measure`` on ``--mesh``
+(one timed frame a tile), which both workers call together: each prints
+the report's ``t_sharded`` (the slowest process's, in hex, so that equal
+bits show as equal text) and ``virtual``. Prints ``MULTIHOST OK`` on
+success.
 
 The card is used unless ``--device cpu``. ``--backend`` defaults to gloo:
 two processes on one card cannot form an NCCL group; gloo stages the
@@ -43,6 +47,7 @@ from ..core.types import make_frame_state
 from ..models import cornell
 from ..parallel import mesh as meshlib
 from ..parallel import render as prender
+from ..parallel import scaling as pscaling
 from ..parallel import train as ptrain
 
 NPROC = 2
@@ -74,15 +79,18 @@ def setup(scene: str, resolution: int, max_raymarch: int,
 
 
 def work(scene, env, cam, cfg, mesh, spp: int, train_mesh=None,
-         train_steps: int = 0, frames: int = 0) -> dict:
+         train_steps: int = 0, frames: int = 0,
+         scaling: bool = False) -> dict:
     """What every process runs: the sharded still (untonemapped) on
     ``mesh``; with ``frames``, that many progressive frames on ``mesh``
     under the strided layout with ``cfg.reprojection``, a 0.08 move of the
     camera and a reprojected refresh (the warp gathers the state across
     processes); then ``train_steps`` train steps on ``train_mesh`` at
-    TRAIN_BOUNCES bounces at most.
+    TRAIN_BOUNCES bounces at most; with ``scaling``, the scaling report
+    on ``mesh`` (one timed frame a tile).
     Returns host arrays: ``image``, ``frame`` (the gathered image of the
-    last frame), ``losses`` and ``albedo``."""
+    last frame), ``losses``, ``albedo`` and ``scaling`` (``t_sharded``,
+    ``virtual``)."""
     out = {"image": prender.render_image_sharded(
         scene, env, cam, cfg, mesh, spp=spp, tonemapped=False).cpu().numpy()}
     if frames:
@@ -117,6 +125,9 @@ def work(scene, env, cam, cfg, mesh, spp: int, train_mesh=None,
             losses.append(float(loss))
         out["losses"] = np.array(losses)
         out["albedo"] = ts.scene.albedo.detach().cpu().numpy()
+    if scaling:
+        rep = pscaling.measure(scene, env, cam, cfg, mesh, iters=1)
+        out["scaling"] = np.array([rep.t_sharded, float(rep.virtual)])
     return out
 
 
@@ -127,7 +138,7 @@ def _run(args, group=None) -> dict:
     mesh = meshlib.make_mesh(*_mesh_shape(args.mesh), group=group)
     train_mesh = meshlib.make_mesh(*TRAIN_MESH, group=group)
     return work(scene, env, cam, cfg, mesh, SPP, train_mesh,
-                args.train_steps, args.frames)
+                args.train_steps, args.frames, args.scaling)
 
 
 def worker(args) -> None:
@@ -141,6 +152,11 @@ def worker(args) -> None:
         print(f"[process {args.worker}] ranks {list(ranks)} of mesh "
               f"{args.mesh}: image {out['image'].shape}, mean "
               f"{out['image'].mean():.6f}, {secs:.2f} s", flush=True)
+        if args.scaling:
+            t, virtual = out["scaling"]
+            print(f"[process {args.worker}] scaling on {args.mesh}: "
+                  f"t_sharded {float(t).hex()} ({t * 1e3:.3f} ms), virtual "
+                  f"{bool(virtual)}", flush=True)
         if args.worker == 0:
             np.savez(args.out, **out)
         dist.barrier()
@@ -161,6 +177,8 @@ def _parser():
     p.add_argument("--train-steps", type=int, default=0)
     p.add_argument("--frames", type=int, default=0,
                    help="reprojected progressive frames on --mesh")
+    p.add_argument("--scaling", action="store_true",
+                   help="the scaling report on --mesh in both workers")
     p.add_argument("--out", default=None,
                    help="directory for multihost.npz (the workers' result "
                         "and the one-process reference)")

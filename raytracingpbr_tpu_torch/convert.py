@@ -53,11 +53,18 @@ def scene_from_jax(scene, device=None) -> Scene:
                  **{k: _t(getattr(scene, k), device) for k in _BUFFERS})
 
 
-def scene_to_numpy(scene: Scene) -> dict:
+def scene_to_numpy(scene: Scene, bunny_type=dict) -> dict:
     """The port's scene's float buffers as numpy arrays, by the JAX
-    ``Scene``'s field names (``jax_scene.replace(**...)`` carries a
-    trained scene back)."""
-    return {k: getattr(scene, k).detach().cpu().numpy() for k in _BUFFERS}
+    ``Scene``'s field names; with a bunny, ``bunny`` too: its eight
+    tensors by name, passed to ``bunny_type`` (the JAX package's
+    ``ops.sdf.BunnyMLP`` makes ``jax_scene.replace(**...)`` carry a
+    trained scene back, MLP included; the default gives a dict)."""
+    out = {k: getattr(scene, k).detach().cpu().numpy() for k in _BUFFERS}
+    if scene.has_bunny:
+        out["bunny"] = bunny_type(**{
+            k: v.detach().cpu().numpy()
+            for k, v in zip(BunnyMLP._fields, scene.bunny)})
+    return out
 
 
 def camera_from_jax(cam, device=None) -> Camera:

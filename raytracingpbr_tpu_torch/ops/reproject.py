@@ -26,14 +26,29 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
-from ..core.math import dot, normalize, radians
+from ..core.math import dot, radians
 from ..core.types import NO_HIT_T, Camera, FrameState, refresh
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The square root rounded once to ``x``'s type from float64: PyTorch's
+    float32 square roots on the card and on the CPU part in the last bit
+    on about one input in a hundred, and ``reproject``'s depths are held to
+    the CPU's bits."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    """``v`` over its length, the squares summed in a fixed order (the
+    card's ``linalg.vector_norm`` adds them in another) and the root by
+    :func:`_sqrt`."""
+    return v / _sqrt(dot(v, v))[..., None]
 
 
 def camera_basis(cam: Camera):
     """The look-at basis of ``ops/camera.get_ray``: (x, y, z) rows."""
-    z = normalize(cam.lookfrom - cam.lookat)
-    x = normalize(torch.linalg.cross(cam.vup, z))
+    z = _unit(cam.lookfrom - cam.lookat)
+    x = _unit(torch.linalg.cross(cam.vup, z))
     y = torch.linalg.cross(z, x)
     return x, y, z
 
@@ -49,14 +64,17 @@ def pixel_center_rays(cam: Camera, cfg: RenderConfig):
     recorded. Returns (origin (3,), directions (N, 3))."""
     half_width, half_height = _half_extent(cam)
     x, y, z = camera_basis(cam)
-    pid = torch.arange(cfg.num_pixels, dtype=torch.int64,
-                       device=cam.lookfrom.device)
-    dtype = cam.lookfrom.dtype
-    u = ((pid // cfg.height).to(dtype) + 0.5) / cfg.width
-    v = ((pid % cfg.height).to(dtype) + 0.5) / cfg.height
+    dev, dtype = cam.lookfrom.device, cam.lookfrom.dtype
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+    # divisors on the device: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, one rounding more than the CPU's
+    width, height = (torch.full((), float(k), dtype=dtype, device=dev)
+                     for k in (cfg.width, cfg.height))
+    u = ((pid // cfg.height).to(dtype) + 0.5) / width
+    v = ((pid % cfg.height).to(dtype) + 0.5) / height
     d = ((2.0 * u - 1.0)[:, None] * (half_width * x)
          + (2.0 * v - 1.0)[:, None] * (half_height * y) - z)
-    return cam.lookfrom, normalize(d)
+    return cam.lookfrom, _unit(d)
 
 
 def project(cam: Camera, cfg: RenderConfig, points: torch.Tensor):
@@ -115,7 +133,7 @@ def reproject(state: FrameState, old_cam: Camera, new_cam: Camera,
     # primaries overwrite them, as distances along the NEW camera's rays
     # (unit directions: ray t is the metric distance)
     off = points - new_cam.lookfrom
-    t_new = torch.sqrt(dot(off, off))
+    t_new = _sqrt(dot(off, off))
     hit_t = torch.full_like(state.hit_t, NO_HIT_T).scatter_reduce_(
         0, target, torch.where(valid, t_new, torch.full_like(t_new,
                                                              NO_HIT_T)),

@@ -8,18 +8,22 @@ Two questions:
   finish their march loops early and wait for tiles of deep geometry.
   Each tile's frame is timed alone (``utils/profiling.time_fn``), so the
   numbers hold on a mesh of more ranks than cards.
-* **end-to-end efficiency**: the unsharded frame against this process's
-  sharded frame. Meaningful only with a card a rank; with more ranks than
-  cards (one process on one H100, or the CPU) the report says
+* **end-to-end efficiency**: the unsharded frame against the sharded
+  frame of the slowest process (over the group when the mesh spans
+  several, as JAX times the whole mesh's program). Meaningful only with a
+  card a rank; with more ranks than cards across the group (one process
+  on one H100, processes sharing a card, or the CPU) the report says
   ``virtual`` and the imbalance is the number that counts.
 """
 from __future__ import annotations
 
 import dataclasses
+import socket
 from typing import List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import RenderConfig
 from ..core import rng as rnglib
@@ -46,7 +50,7 @@ class ScalingReport:
     tiles: List[TileStats]
     imbalance_pct: float    # (max - mean) / mean * 100 over tile times
     t_single: float         # unsharded frame, seconds
-    t_sharded: float        # this process's sharded frame, seconds
+    t_sharded: float        # sharded frame, seconds (slowest process)
     efficiency_pct: float   # t_single / (n_tiles * t_sharded) * 100
     n_tiles: int
     virtual: bool           # more ranks than cards: efficiency not meaningful
@@ -69,6 +73,38 @@ class ScalingReport:
         return "\n".join(lines)
 
 
+def _group(mesh: Mesh):
+    """The process group the mesh spans, or None for this process alone:
+    the mesh's own, else the default group when it holds several."""
+    if mesh.group is not None:
+        return mesh.group
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
+
+
+def _across(group, seconds: float, dev: torch.device):
+    """(the slowest process's ``seconds``, the distinct cards the group's
+    processes render on): an all-reduce MAX on the backend's device and
+    the gathered (hostname, CUDA device index) pairs; without a group,
+    this process's seconds and this host's cards. The CPU has no card."""
+    if group is None:
+        return seconds, (torch.cuda.device_count() if dev.type == "cuda"
+                         else 0)
+    nccl = dist.get_backend(group) == "nccl"
+    on = (torch.device("cuda", torch.cuda.current_device()) if nccl
+          else torch.device("cpu"))
+    t = torch.tensor([seconds], dtype=torch.float64, device=on)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    card = ((socket.gethostname(), dev.index if dev.index is not None
+             else torch.cuda.current_device())
+            if dev.type == "cuda" else None)
+    cards = [None] * dist.get_world_size(group)
+    dist.all_gather_object(cards, card, group=group)
+    return float(t.item()), len({c for c in cards if c is not None})
+
+
 def measure(scene: Scene, env: Environment, cam: Camera, cfg: RenderConfig,
             mesh: Mesh, iters: int = 5,
             layout: str = "contiguous") -> ScalingReport:
@@ -78,7 +114,11 @@ def measure(scene: Scene, env: Environment, cam: Camera, cfg: RenderConfig,
     Each tile's pixels are rendered alone (its global pixel ids, a fresh
     state: the work of its shard) and timed; its work proxy is the trip
     count of its longest primary ray, from one march of its sample-0
-    camera rays."""
+    camera rays. These per-tile numbers are this process's own. Across
+    processes (the mesh's group, or a default group of several) every
+    process calls this together: ``t_sharded`` is then the slowest
+    process's, the same on all, and ``virtual`` counts the cards of the
+    whole group."""
     n = cfg.num_pixels
     tiles = mesh.tiles
     assert n % tiles == 0, (n, tiles)
@@ -110,7 +150,7 @@ def measure(scene: Scene, env: Environment, cam: Camera, cfg: RenderConfig,
         scene, env, cam, st, cfg, mesh, layout=layout), state, warmup=2,
         iters=iters)
 
-    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    t_shard, cards = _across(_group(mesh), t_shard, dev)
     virtual = mesh.size > cards
     eff = float(t_single / (tiles * t_shard) * 100.0)
     return ScalingReport(stats, imbalance, t_single, t_shard, eff, tiles,

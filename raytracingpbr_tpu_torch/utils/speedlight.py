@@ -173,14 +173,16 @@ def phased_executed(fin: torch.Tensor, phases) -> int:
 
 
 def support_lane_trips(scene, origin, direction, cfg: RenderConfig,
-                       active=None, init=None):
+                       active=None, init=None, plain: Optional[list] = None):
     """``(inside, warp_inside)`` for one budgeted march, counted by the
     plain march on the same inputs: the (lane, bunny) trips whose point
     lies inside a bunny's unit sphere, where the MLP runs, and the
     lane-trips of warps of 32 consecutive lanes with at least one such lane
     (32 each: what a march that keeps a lane on one thread and runs the MLP
     for the whole warp would run). Both 0 for a scene without the bunny.
-    For the work accounting only."""
+    For the work accounting only. ``plain``: a list to which the plain
+    march's result is appended (with a bunny), so that a caller holding a
+    kernel against the plain march runs it once."""
     bunnies = [i for i, t in enumerate(scene.shape_types)
                if t == SHAPE.BUNNY]
     counts = torch.zeros(2, dtype=torch.int64, device=origin.device)
@@ -201,8 +203,10 @@ def support_lane_trips(scene, origin, direction, cfg: RenderConfig,
             counts[0] += inside.sum()
             counts[1] += warps.sum() * WARP
 
-    marchlib.march_resumable_plain(scene, origin, direction, cfg, active,
-                                   init, on_trip=on_trip)
+    res = marchlib.march_resumable_plain(scene, origin, direction, cfg,
+                                         active, init, on_trip=on_trip)
+    if plain is not None:
+        plain.append(res)
     return int(counts[0]), int(counts[1])
 
 

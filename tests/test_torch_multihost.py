@@ -11,7 +11,9 @@ each, against the same mesh in one process.
 * three train steps on (4, 2): the losses equal the one-process mesh's bit
   for bit (each rank's loss is added in mesh-rank order), the updated
   albedo within rtol 1e-5 (a process adds its batch's gradients in its own
-  order).
+  order);
+* the scaling report over both processes: the same ``t_sharded`` bits in
+  each, and the mesh virtual.
 """
 import os
 import subprocess
@@ -71,3 +73,19 @@ def test_runs_on_the_card_unless_asked():
         pytest.skip("a card is present: the runner would use it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         multihost.main(["--resolution", "8"])
+
+
+def test_scaling_report_over_two_processes():
+    """``parallel/scaling.measure`` called by both workers together on the
+    (8, 1) mesh: ``t_sharded`` is the slowest process's, so both print
+    the same bits, and the mesh is virtual (8 ranks, no card in the
+    group)."""
+    out = run_app("--resolution", "16", "--scaling")
+    lines = [line for line in out.splitlines() if "scaling on 8x1" in line]
+    assert len(lines) == 2, out
+    assert {line.split("]")[0] for line in lines} == {"  [process 0",
+                                                      "  [process 1"}
+    hexes = {line.split("t_sharded ")[1].split()[0] for line in lines}
+    assert len(hexes) == 1, lines
+    assert float.fromhex(hexes.pop()) > 0
+    assert all(line.endswith("virtual True") for line in lines), lines

@@ -159,8 +159,11 @@ def test_import_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "import raytracingpbr_tpu_torch.apps.offline\n"
         "for m in ('apps.offline', 'apps.progressive', 'io.checkpoint',\n"
-        "          'utils.validate', 'utils.profiling', 'ops.ibl'):\n"
+        "          'utils.validate', 'utils.profiling', 'ops.ibl',\n"
+        "          'apps.multihost', 'parallel.scaling', 'ops.reproject',\n"
+        "          'convert', 'utils.speedlight'):\n"
         "    assert 'raytracingpbr_tpu_torch.' + m in sys.modules, m\n"
+        "import chip_smoke\n"
         "bad = [m for m in ('jax', 'flax', 'raytracingpbr_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n")
