@@ -12,6 +12,20 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     source started together (march.cu: K1a, K1b, K1c; march_mxu.cu: K1d;
     speedlight.cu: K2), and print what ``-Xptxas -v`` says of each library
     and the persistent grid of K1c and K1d.
+11. the bench, right after the build: ``python3 bench_torch.py`` and
+    ``python3 tools/bench_workloads_torch.py`` as fresh processes, as a
+    user runs them: rc 0; ``bench.py``'s eleven keys and ``device``, every
+    number finite and above 0, the card's name and power limit as
+    ``nvidia-smi`` gives them; the headline's K1a launches 4 a frame and
+    no other march kernel (from the run's record line on stderr); the six
+    rows at their native resolution, each in the table. Then
+    ``bench.nee_equal_time`` and ``bench.adaptive_payoff`` in this process
+    at a tenth of the JAX scripts' budgets and frame counts: K1a and K1b
+    (the shadow rays alone), K1a alone; every number finite (the adaptive
+    bench's gate does no work at a tenth of its frames: 9c holds it).
+    Then the paths no other phase marches, one frame each, every march
+    call bit-equal to the plain march: NEE's sun-lit spheres at 160x160
+    (K1a bounces, K1b shadow rays) and the Cornell minimal 512x512 row.
 1b. K2 (the FP32 FMA roof) vs its plain version at a small ragged size
     and on the sweep's own inputs at each of its configurations (rtol
     1e-5: FFMA rounds once, the plain multiply and add twice, and the
@@ -273,7 +287,10 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     (a multiply by its reciprocal) rounds apart from the CPU's, against a
     divisor that is a tensor on the card.
 
-Each path's launch counts are set to 0 just before it and read just after.
+The protocols that time frames, passes and steps (3, 3b, 3c, 3f, 3g-3i,
+7b, 7c, 8a-8c, 8f, 9b) are ``raytracingpbr_tpu_torch/bench.py``'s, as are
+the workload rows' configurations. Each path's launch counts are set to 0
+just before it and read just after.
 The last lines are the kernels' JSON record (K1a and K1b with their mean
 call inside their frames, a call alone and back to back; K1c and K1d with
 theirs; K1a, K1c and K1d with their launches a megakernel pass and their
@@ -284,7 +301,8 @@ K1d with their launches a bunny scan-AD step (8f) and K1c a bunny train
 step (8g), and the 8f step's calls' time, bound and share;
 each with its 9a phased calls, its 9b phased passes and its launches in
 9c-9d; K1a with its sharded paths' launches in 10a-10e, K1b with the
-reprojected engine frame's in 10b),
+reprojected engine frame's in 10b; K1a, K1b, K1c and K2 with the bench's
+launches in 11, by source),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no jax.
 """
@@ -304,10 +322,12 @@ import numpy as np
 import torch
 
 from raytracingpbr_tpu_torch import (HitCriterion, OmegaPolicy, RenderConfig,
-                                     Roulette, make_camera)
+                                     Roulette, bench, make_camera)
 from raytracingpbr_tpu_torch.apps import (denoise_demo, interactive,
                                           multihost, progressive)
-from raytracingpbr_tpu_torch.core import rng
+from raytracingpbr_tpu_torch.bench import (albedo_grad, bunny_config,
+                                           card_line, grad_config, k1b_paths,
+                                           metal_config, sun_sky)
 from raytracingpbr_tpu_torch.core.types import make_frame_state
 from raytracingpbr_tpu_torch.io import checkpoint as ckpt
 from raytracingpbr_tpu_torch.io import image as imageio
@@ -315,7 +335,7 @@ from raytracingpbr_tpu_torch.io.image import read_png
 from raytracingpbr_tpu_torch.kernels import build, fma_kernel, march_kernel
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.models.goldens import GOLDENS, render_golden
-from raytracingpbr_tpu_torch.ops import camera, ibl, integrator, march
+from raytracingpbr_tpu_torch.ops import ibl, integrator, march
 from raytracingpbr_tpu_torch.ops import compact as compactlib
 from raytracingpbr_tpu_torch.ops import post as postlib
 from raytracingpbr_tpu_torch.ops import reproject as reprojectlib
@@ -416,56 +436,14 @@ SCALING_ITERS = 3
 MESH_TRAIN_STEPS = 5
 DENOISE_STEPS = 100
 DENOISE_HELD = 10
+# the bench (11): the entry points' time limit as subprocesses (s); the
+# share of the NEE and adaptive benches' budgets and frames run here
+BENCH_TIMEOUT = 600
+BENCH_SHARE = 10
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-
-
-def main_config():
-    """bench.py's headline configuration."""
-    return cornell.full_config().replace(samples_per_frame=4,
-                                         max_raytrace=512,
-                                         quality_per_sample=0.8)
-
-
-def bunny_config():
-    """The bunny glass animation as the reference's workload table runs it:
-    1920x1080, 4 steps a frame of one sample each."""
-    return bunny.glass_config().replace(resolution=BUNNY_RES,
-                                        samples_per_frame=4,
-                                        samples_per_pixel=1)
-
-
-def metal_config():
-    """The metal bunny as the reference's workload table runs it: 3840x2160,
-    4 steps a frame of one sample each."""
-    return bunny.metal_config().replace(samples_per_frame=4,
-                                        samples_per_pixel=1)
-
-
-def k1b_paths(dev):
-    """K1b's two paths as the reference's workload table runs them
-    (``tools/bench_workloads.py``), 4 steps a frame of one sample each:
-    {label: (scene, environment, camera, config)}."""
-    one = dict(samples_per_frame=4, samples_per_pixel=1)
-    return {
-        "tokyo 2880x1620": (demo.scene_demo_scene(dev),
-                            demo.tokyo_environment(device=dev),
-                            demo.engine_camera(dev),
-                            demo.tokyo_config().replace(**one)),
-        "engine 768x432": (demo.engine_scene(dev),
-                           demo.engine_environment(device=dev),
-                           demo.engine_camera(dev),
-                           demo.engine_config().replace(**one)),
-    }
 
 
 def phase_device():
@@ -666,15 +644,6 @@ def chain(scene, o, d, cfg, total, max_calls, cmp=compare):
     return calls, err, int(live.sum())
 
 
-def primaries(cfg, cam):
-    dev = cam.lookfrom.device
-    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
-    u = rng.uniform4(pid, 0, 1, cfg.seed)
-    uv = camera.pixel_uv(pid, cfg.width, cfg.height, u[0], u[1])
-    rays = camera.get_ray(cam, uv, u[2], u[3])
-    return rays.origin, rays.direction
-
-
 def random_rays(n, seed, center, spread, dev):
     g = torch.Generator(device="cpu").manual_seed(seed)
     o = torch.tensor(center) + spread * torch.randn((n, 3), generator=g)
@@ -698,10 +667,10 @@ def mixed_state(scene, env, cam, cfg, steps=3):
 
 
 def phase_kernel_vs_plain(dev):
-    cfg = main_config()
+    cfg = bench.headline_config()
     scene = cornell.full_scene(dev)
     mcfg = cfg.replace(max_raymarch=cfg.march_split)
-    o, d = primaries(cfg, cornell.full_camera(dev))
+    o, d = bench.utilization_rays(cfg, cornell.full_camera(dev))
 
     # primaries, budget 32 chained over the 512-trip budget
     calls, err, unconv = chain(scene, o, d, mcfg, cfg.max_raymarch, 16)
@@ -752,7 +721,8 @@ def phase_k1c_vs_plain(dev):
     glass, env = bunny.glass_scene(dev), bunny.glass_environment(device=dev)
 
     ccfg = mcfg.replace(resolution=BUNNY_CMP_RES)
-    o, d = primaries(ccfg, bunny.camera(ccfg.width / ccfg.height, dev))
+    o, d = bench.utilization_rays(
+        ccfg, bunny.camera(ccfg.width / ccfg.height, dev))
     calls, err, unconv = chain(glass, o, d, ccfg, cfg.max_raymarch, 4)
     log(f"[2b] K1c glass primaries {BUNNY_CMP_RES}: {calls} chained "
         f"budget-32 calls bit-equal, {unconv} lanes still marching")
@@ -815,7 +785,7 @@ def phase_k1b_vs_plain(dev):
         cfg = cfg.replace(resolution=K1B_RES)
         mcfg = cfg.replace(max_raymarch=32)
         assert march_kernel.variant(scene, mcfg) == "k1b"
-        o, d = primaries(cfg, demo.engine_camera(dev))
+        o, d = bench.utilization_rays(cfg, demo.engine_camera(dev))
         calls, e, unconv = chain(scene, o, d, mcfg, cfg.max_raymarch, 16)
         err = max(err, e)
         k, e = compare(scene, ro, rd, cfg.replace(max_raymarch=128))
@@ -849,7 +819,8 @@ def phase_k1d_vs_plain(dev, glass_state):
 
     metal = bunny.metal_scene(dev)
     mcfg = bunny.metal_config().replace(resolution=BUNNY_RES)
-    o, d = primaries(mcfg, bunny.camera(mcfg.width / mcfg.height, dev))
+    o, d = bench.utilization_rays(
+        mcfg, bunny.camera(mcfg.width / mcfg.height, dev))
     calls, e, unconv = chain(metal, o, d,
                              mcfg.replace(max_raymarch=32, bunny_mxu=True),
                              mcfg.max_raymarch, 4, cmp=compare_close)
@@ -919,55 +890,26 @@ def check_frame(px, c0, c1):
 
 
 def run_frames(scene, env, cam, cfg, kind, label, per_step=1):
-    """bench.py's protocol from a fresh state: 1 + 3 warm-up frames, 10
-    timed, ending in a sync; ``kind``'s kernel must launch ``per_step``
-    times a step (2 with NEE: the bounce and the shadow rays) and no other
-    march kernel at all. Returns (ms/frame, Msamples/s, launches,
-    state)."""
-    state = make_frame_state(cfg.num_pixels, device=scene.device)
-    steps = cfg.samples_per_frame * cfg.samples_per_pixel
-    march_kernel.reset_launches()
-    t0 = time.perf_counter()
-    px, state = render_frame(scene, env, cam, state, cfg)
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
-    for _ in range(3):
-        px, state = render_frame(scene, env, cam, state, cfg)
-    torch.cuda.synchronize()
-    c0 = float(state.accum[:, 3].sum())
-    t0 = time.perf_counter()
-    for _ in range(TIMED_FRAMES):
-        px, state = render_frame(scene, env, cam, state, cfg)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    c1 = float(state.accum[:, 3].sum())
-    launches = dict(march_kernel.LAUNCHES)
-    bound = dict(march_kernel.BOUND_LAUNCHES)
-    frames = 4 + TIMED_FRAMES
-    expect = {k: per_step * steps * frames if k == kind else 0
-              for k in launches}
-    if launches != expect:
-        raise AssertionError(f"{label}: expected {per_step * steps} {kind} "
-                             f"launches per frame, got {launches} over "
-                             f"{frames} frames")
-    # with NEE (per_step 2) one launch a step is the shadow rays' bound one
-    expect = {k: (per_step - 1) * steps * frames if k == kind else 0
-              for k in bound}
-    if bound != expect:
-        raise AssertionError(f"{label}: expected {expect} escape-bound "
-                             f"launches, got {bound}")
-    check_frame(px, c0, c1)
-    ms, msps = dt / TIMED_FRAMES * 1e3, (c1 - c0) / dt / 1e6
-    log(f"{label}: first frame {first:.2f} s; {ms:.3f} ms/frame, "
-        f"{msps:.4f} Msamples/s, {launches[kind]} {kind} launches in "
-        f"{frames} frames, {bound[kind]} of them escape-bound")
-    return ms, msps, launches[kind], state
+    """``bench.wavefront``'s protocol from a fresh state: 1 + 3 warm-up
+    frames, 10 timed, ending in a sync; ``kind``'s kernel must launch
+    ``per_step`` times a step (2 with NEE: the bounce and the shadow rays)
+    and no other march kernel at all (``bench.check_frame_launches``).
+    Returns (ms/frame, Msamples/s, launches, state)."""
+    r = bench.wavefront(scene, env, cam, cfg, 3, TIMED_FRAMES)
+    bench.check_frame_launches(label, r, cfg, kind, per_step)
+    c1 = bench.sample_count(r["state"])
+    check_frame(r["pixels"], c1 - r["samples"], c1)
+    n = r["launches"]["march"][kind]
+    log(f"{label}: first frame {r['first_s']:.2f} s; {r['ms']:.3f} ms/frame, "
+        f"{r['msps']:.4f} Msamples/s, {n} {kind} launches in {r['frames']} "
+        f"frames, {r['launches']['bound'][kind]} of them escape-bound")
+    return r["ms"], r["msps"], n, r["state"]
 
 
 def phase_main_path(dev):
     """The Cornell frames, then one more whose four march calls are
     recorded (3e)."""
-    cfg = main_config()
+    cfg = bench.headline_config()
     scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
                        cornell.full_camera(dev))
     ms, msps, n, state = run_frames(scene, env, cam, cfg, "k1a",
@@ -1321,39 +1263,23 @@ def host_syncs(fn):
 
 def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
                       warm=True, per_bounce=1, **kw):
-    """``bench.py``'s megakernel protocol: ``render_image(spp=1,
-    tonemapped=False)`` at sample_offset ``first - 1`` as warm-up (unless
-    ``warm`` is False), then ``passes`` timed passes at sample offsets
-    ``first``, ``first + 1``, ... ending in a sync. Only ``kind``'s march
-    kernel may launch, one launch a bounce (``kind`` may be a tuple: the
-    bounce's kernel first, then the shadow rays', each of which must
-    launch); the shadow rays' launches are the escape-bound ones, which
-    run exactly when ``cfg.env_sampling`` is on. ``per_bounce``: the
-    bounce kernel's launches a bounce (the phases of a phased march; they
-    must divide its launches). Returns ms/pass,
+    """``bench.megakernel``'s protocol (``bench.py:88-108``):
+    ``render_image(spp=1, tonemapped=False)`` at sample_offset ``first -
+    1`` as warm-up (unless ``warm`` is False), then ``passes`` timed passes
+    at sample offsets ``first``, ``first + 1``, ... ending in a sync.
+    Only ``kind``'s march kernel may launch, one launch a bounce (``kind``
+    may be a tuple: the bounce's kernel first, then the shadow rays', each
+    of which must launch); the shadow rays' launches are the escape-bound
+    ones, which run exactly when ``cfg.env_sampling`` is on.
+    ``per_bounce``: the bounce kernel's launches a bounce (the phases of a
+    phased march; they must divide its launches). Returns ms/pass,
     Msamples/s, bounces the loop ran a pass, the launches, shadow launches
     a pass, peak GiB and the last image."""
     kinds = (kind,) if isinstance(kind, str) else tuple(kind)
-    run = lambda s: render_image(scene, env, cam, cfg, spp=1,
-                                 sample_offset=s, tonemapped=False, **kw)
-    t0 = time.perf_counter()
-    if warm:
-        run(first - 1)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    march_kernel.reset_launches()
-    t0 = time.perf_counter()
-    for s in range(first, first + passes):
-        img = run(s)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / passes
-    launches = dict(march_kernel.LAUNCHES)
-    bound = dict(march_kernel.BOUND_LAUNCHES)
-    if not all(launches[k] for k in kinds) or any(
-            v for k, v in launches.items() if k not in kinds):
-        raise AssertionError(f"{label}: expected {kinds} launches alone, "
-                             f"got {launches}")
+    r = bench.megakernel(scene, env, cam, cfg, passes, first, warm, **kw)
+    warm, dt, img = r["warm_s"], r["ms"] / 1e3, r["img"]
+    launches, bound = r["launches"]["march"], r["launches"]["bound"]
+    bench.check_kinds(label, r["launches"], kinds)
     shadow = sum(bound.values())
     if bool(shadow) != cfg.env_sampling:
         raise AssertionError(f"{label}: escape-bound launches {bound} with "
@@ -1366,12 +1292,11 @@ def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
     if bounce_launches % per_bounce:
         raise AssertionError(f"{label}: {bounce_launches} bounce launches, "
                              f"not a multiple of {per_bounce} a bounce")
-    out = dict(ms=dt * 1e3, msps=cfg.num_pixels / dt / 1e6,
+    out = dict(ms=r["ms"], msps=r["msps"],
                bounces=bounce_launches / per_bounce / passes,
                launches=launches[kinds[0]],
                all_launches={k: launches[k] for k in kinds},
-               shadow_per_pass=shadow / passes,
-               mem=torch.cuda.max_memory_allocated() / 2**30, img=img)
+               shadow_per_pass=shadow / passes, mem=r["mem_gib"], img=img)
     log(f"{label}: warm-up pass {warm:.2f} s; {out['ms']:.3f} ms/pass, "
         f"{out['msps']:.4f} Msamples/s over {passes} passes; the loop ran "
         f"{out['bounces']:.2f} bounces a pass; launches "
@@ -1642,7 +1567,7 @@ def phase_utilization(dev, states):
         f"{roof / speedlight.H100_FP32_FLOPS * 100:.2f}% of the published "
         f"67 TFLOP/s, on {card_line()}")
     cfg = cornell.full_config()
-    o, d = primaries(cfg, cornell.full_camera(dev))
+    o, d = bench.utilization_rays(cfg, cornell.full_camera(dev))
     report("bench.py's Cornell march, 480x480 primaries, 512 trips, K1a",
            speedlight.march_utilization(cornell.full_scene(dev), o, d, cfg))
     bounds = {}
@@ -1665,14 +1590,6 @@ def phase_utilization(dev, states):
 
 
 # --- environment sampling (NEE / MIS) and the progressive daemon -------------
-
-def sun_sky(dev):
-    """``bench.py:119-127``'s sun sky for the NEE Cornell megakernel: 64x32
-    texels of 0.05 with a 4x4 sun of 25."""
-    img = np.full((64, 32, 3), 0.05, np.float32)
-    img[40:44, 24:28] = 25.0
-    return ibl.hdr_environment(img, prebake=False, device=dev)
-
 
 def phase_alias_tables(dev):
     """7a: the alias tables of the engine, tokyo and glass skies and of
@@ -2051,33 +1968,12 @@ def nee_phases(dev):
 # --- gradients: scan-AD, path replay and the train step ---------------------
 
 
-def grad_config(max_raytrace, env_sampling=False, **kw):
-    """``bench.py:110-152``'s fwd+bwd configuration: Cornell full at
-    480x480 with ``max_raytrace`` bounces (and NEE under the sun sky)."""
-    return cornell.full_config().replace(max_raytrace=max_raytrace,
-                                         env_sampling=env_sampling, **kw)
-
-
-def albedo_grad(scene, env, cam, cfg, mode, s, target=None):
-    """One fwd+bwd step of ``bench.py``'s protocol: ``render_pixels`` at
-    spp 1, sample offset ``s``, the MSE against ``target`` (zeros), the
-    gradient of ``albedo`` (``mode``: True scan-AD, ``"replay"``)."""
-    pid = torch.arange(cfg.num_pixels, dtype=torch.int64,
-                       device=scene.device)
-    albedo = scene.albedo.clone().requires_grad_(True)
-    img = ptrain.render_pixels(scene.replace(albedo=albedo), env, cam, pid,
-                               cfg, spp=1, sample_offset=s,
-                               differentiable=mode)
-    target = torch.zeros_like(img) if target is None else target
-    (g,) = torch.autograd.grad(torch.mean((img - target) ** 2), albedo)
-    return g
-
-
 def fwd_bwd(label, scene, env, cam, cfg, mode, kinds, steps=GRAD_STEPS,
             grads=None):
-    """``bench.py``'s fwd+bwd protocol: one warm-up step (sample 0), then
-    ``steps`` timed steps (samples 1..steps) ending in a sync. The launch
-    counts are set to 0 before the timed steps and read after: only
+    """``bench.timed_steps``' fwd+bwd protocol (``bench.py:110-152``): one
+    warm-up step (sample 0), then ``steps`` timed steps (samples
+    1..steps) ending in a sync. The launch counts are set to 0 before the
+    timed steps and read after: only
     ``kinds`` may launch, each at least once. ``grads``: the step, ``s ->
     {name: gradient}`` (default the albedo's, :func:`albedo_grad`), each
     gradient finite and nonzero. Returns s/step, Msamples/s (pixels /
@@ -2086,39 +1982,22 @@ def fwd_bwd(label, scene, env, cam, cfg, mode, kinds, steps=GRAD_STEPS,
     if grads is None:
         grads = lambda s: {"albedo": albedo_grad(scene, env, cam, cfg, mode,
                                                  s)}
-    t0 = time.perf_counter()
-    grads(0)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    march_kernel.reset_launches()
-    t0 = time.perf_counter()
-    for s in range(1, steps + 1):
-        gs = grads(s)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / steps
-    launches = dict(march_kernel.LAUNCHES)
-    shadow = sum(march_kernel.BOUND_LAUNCHES.values())
-    if not all(launches[k] for k in kinds) or any(
-            v for k, v in launches.items() if k not in kinds):
-        raise AssertionError(f"{label}: expected {kinds} launches alone, "
-                             f"got {launches}")
+    r = bench.timed_steps(grads, steps, scene.device)
+    warm, dt, gs = r["warm_s"], r["s"], r["grads"]
+    launches = r["launches"]["march"]
+    shadow = sum(r["launches"]["bound"].values())
+    bench.check_kinds(label, r["launches"], kinds)
     if bool(shadow) != cfg.env_sampling:
         raise AssertionError(f"{label}: escape-bound launches {shadow} with "
                              f"env_sampling={cfg.env_sampling}")
-    for name, g in gs.items():
-        if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
-            raise AssertionError(f"{label}: the {name} gradient is not "
-                                 f"finite and nonzero: {g.tolist()}")
-    out = dict(s=dt, msps=cfg.num_pixels / dt / 1e6,
-               mem=(torch.cuda.max_memory_allocated() - held) / 2**30,
+    bench.check_grads(label, gs)
+    out = dict(s=dt, msps=cfg.num_pixels / dt / 1e6, mem=r["mem_gib"],
                launches={k: launches[k] / steps for k in kinds},
                shadow=shadow / steps, grad=next(iter(gs.values())),
                grads=gs)
     log(f"[{label}] warm-up step {warm:.2f} s; {dt:.4f} s/step, "
         f"{out['msps']:.4f} Msamples/s over {steps} steps; peak device "
-        f"memory {out['mem']:.3f} GiB above the {held / 2**30:.3f} held "
+        f"memory {out['mem']:.3f} GiB above the {r['held_gib']:.3f} held "
         f"before; launches a step "
         f"{out['launches']}, escape-bound (shadow) {out['shadow']:g}; "
         f"card {card_line()}")
@@ -2380,7 +2259,7 @@ def phase_train(dev):
     if not (np.isfinite(loss) and launches["k1a"] > 0
             and not any(v for k, v in launches.items() if k != "k1a")):
         raise AssertionError(f"8e: loss {loss}, launches {launches}")
-    o, d = primaries(cfg, cam)
+    o, d = bench.utilization_rays(cfg, cam)
     _, err = compare(ts.scene, o, d, cfg)
     log(f"[8e] train step, Cornell full {cfg.width}x{cfg.height}, 8 "
         f"bounces, materials "
@@ -2402,7 +2281,7 @@ def phase_train(dev):
             p is not None for p in ts.scene.rot_perm):
         raise AssertionError("8e: the matrix step left the matrix or the "
                              "permutation records as they were")
-    o, d = primaries(cfg, cam)
+    o, d = bench.utilization_rays(cfg, cam)
     compare(ts.scene, o, d, cfg)
     log(f"[8e] one step training the matrix (64x64, gradient sky): the "
         f"permutation records dropped, K1a on the updated scene's "
@@ -2889,7 +2768,7 @@ def phase_phased_calls(dev, cornell_rec, glass_rec, glass_support):
     out[f"cornell megakernel {names[0]}"] = phased_call(
         f"Cornell megakernel 480x480 {names[0]}", scene, o, d, a, c, 0)
     for label, (sc, _, cam, cfg) in k1b_paths(dev).items():
-        o, d = primaries(cfg, cam)
+        o, d = bench.utilization_rays(cfg, cam)
         out[f"{label} primaries"] = phased_call(f"{label} primaries", sc, o,
                                                 d, None, cfg, 0)
         del o, d
@@ -3050,7 +2929,7 @@ def phase_adaptive_compaction(dev):
     on, on, off. The compacted run's raster and uncompacted state equal
     the other's bit for bit; a compaction moved lanes, and at least 10% of
     the pixels were gated off at the last one."""
-    cfg = main_config().replace(adaptive_sampling=True,
+    cfg = bench.headline_config().replace(adaptive_sampling=True,
                                 noise_threshold=ADAPTIVE_THRESHOLD)
     scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
                        cornell.full_camera(dev))
@@ -3506,7 +3385,7 @@ def phase_sharded_frames(dev):
     the set of stopped pixels equal."""
     scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
                        cornell.full_camera(dev))
-    cfg = main_config()
+    cfg = bench.headline_config()
     mesh = pmesh.make_mesh(8, 1)
     out = {}
     for layout in ("contiguous", "strided"):
@@ -3641,7 +3520,7 @@ def phase_scaling(dev):
                        cornell.full_camera(dev))
     out = {}
     for layout in ("contiguous", "strided"):
-        rep = pscaling.measure(scene, env, cam, main_config(),
+        rep = pscaling.measure(scene, env, cam, bench.headline_config(),
                                pmesh.make_mesh(8, 1), iters=SCALING_ITERS,
                                layout=layout)
         trips = np.array([t.march_iters for t in rep.tiles], float)
@@ -3830,15 +3709,149 @@ def sharded_phases(dev, train_8e):
                 scaling=scaling_out, train=train, item16=item16)
 
 
+# --- the bench: bench_torch.py, the workload rows, NEE, adaptive -----------
+
+def run_entry(label, args):
+    """``python3 args`` in a fresh process from the repo root, as a user
+    runs it: rc 0, its stderr logged, its one ``bench.RECORD`` line read.
+    Returns (stdout's lines, the record, seconds)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, *args], cwd=REPO, text=True,
+                       capture_output=True, timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    for line in p.stderr.splitlines():
+        log(f"[11] {label}: {line}")
+    if p.returncode:
+        raise AssertionError(f"{label}: rc {p.returncode}; stdout "
+                             f"{p.stdout[-2000:]}")
+    rec = [json.loads(line[len(bench.RECORD):])
+           for line in p.stderr.splitlines()
+           if line.startswith(bench.RECORD)]
+    if len(rec) != 1:
+        raise AssertionError(f"{label}: {len(rec)} record lines")
+    log(f"[11] {label}: rc 0 in {secs:.1f} s")
+    return p.stdout.splitlines(), rec[0], secs
+
+
+def hold_bench_frames(dev):
+    """The bench's paths that no other phase marches, held call by call:
+    the second frame of ``bench.nee_setup``'s sun-lit spheres with NEE on
+    (the bounces through K1a, the shadow rays through K1b's escape-bound
+    instance) and of the Cornell minimal 512x512 workload row (K1a); each
+    recorded call bit-equal to the plain march on its inputs. Returns
+    {frame: {kind: (calls, max abs err)}}."""
+    scene, _, env_s, cam, cfg = bench.nee_setup(dev)
+    (_, mscene, menv, mcam, mcfg), = bench.workload_rows(
+        dev, (bench.ROW_MINIMAL,))
+    out = {}
+    for label, sc, env, cm, c, per_step, kinds in (
+            (f"NEE spheres {bench.NEE_RES}x{bench.NEE_RES}", scene, env_s,
+             cam, cfg.replace(env_sampling=True), 2, ("k1a", "k1b")),
+            (bench.ROW_MINIMAL, mscene, menv, mcam, mcfg, 1, ("k1a",))):
+        _, state = render_frame(sc, env, cm,
+                                make_frame_state(c.num_pixels, device=dev),
+                                c)
+        calls, _ = capture_frame(sc, env, cm, c, state, per_step)
+        out[label] = hold_calls(f"11 {label}", [(sc, x) for x in calls],
+                                "frame")
+        if tuple(sorted(out[label])) != kinds:
+            raise AssertionError(f"[11] {label}: calls of {out[label]}, "
+                                 f"expected {kinds}")
+    return out
+
+
+def phase_bench(dev):
+    """11: ``python3 bench_torch.py`` and ``tools/bench_workloads_torch.py``
+    as fresh processes (rc 0; bench.py's eleven keys and ``device``, every
+    number finite and above 0, the card's name and power limit; the
+    headline's K1a launches 4 a frame and no other march kernel; all six
+    rows at their native resolution, each row's kernel 4 launches a frame),
+    then ``bench.nee_equal_time`` and ``bench.adaptive_payoff`` in this
+    process at a tenth of the JAX scripts' budgets, and one frame of each
+    path no other phase marches held call by call against the plain march
+    (:func:`hold_bench_frames`). At a tenth of its frames the adaptive
+    bench leaves every pixel active, so its gate and compacted frames do
+    no work here: 9c holds the gate. Returns what the kernels line
+    reads."""
+    t0 = time.perf_counter()
+    lines, rec, bench_s = run_entry("bench_torch.py", ["bench_torch.py"])
+    out = json.loads(lines[-1])
+    if tuple(out) != bench.KEYS + ("device",):
+        raise AssertionError(f"bench_torch.py keys: {list(out)}")
+    bench.check_positive("bench_torch.py", {
+        k: v for k, v in out.items() if k not in ("metric", "unit",
+                                                  "device")})
+    name, _, limit = card_line().rpartition(", ")
+    if out["device"] != {"name": name, "power_limit": limit}:
+        raise AssertionError(f"bench_torch.py device: {out['device']}")
+    head, frames = rec["launches"]["headline"], rec["headline"]["frames"]
+    want = {k: 4 * frames if k == "k1a" else 0 for k in head["march"]}
+    if head["march"] != want or any(head["bound"].values()):
+        raise AssertionError(f"headline launches {head} over {frames} "
+                             f"frames")
+    log(f"[11] bench_torch.py: {json.dumps(out)}; K1a {head['march']['k1a']}"
+        f" launches in {frames} frames")
+
+    lines, wrec, rows_s = run_entry("tools/bench_workloads_torch.py",
+                                    ["tools/bench_workloads_torch.py"])
+    rows = wrec["rows"]
+    if tuple(r["name"] for r in rows) != bench.ROWS:
+        raise AssertionError(f"workload rows {[r['name'] for r in rows]}")
+    for r in rows:
+        bench.check_positive(r["name"], {k: r[k] for k in ("msps", "ms",
+                                                        "samples")})
+        if f"| {r['name']} |" not in "\n".join(lines):
+            raise AssertionError(f"{r['name']}: not in the table")
+    log("[11] tools/bench_workloads_torch.py:\n" + "\n".join(lines))
+
+    tenth = {k: tuple(x / BENCH_SHARE for x in v) if isinstance(v, tuple)
+             else v / BENCH_SHARE for k, v in bench.NEE_BUDGETS.items()}
+    nee = bench.nee_equal_time(dev, **tenth)
+    bench.check_kinds("[11] nee_equal_time", nee["launches"], ("k1a", "k1b"))
+    if nee["launches"]["bound"]["k1b"] != nee["launches"]["march"]["k1b"]:
+        raise AssertionError(f"[11] NEE: K1b launched beside the shadow "
+                             f"rays: {nee['launches']}")
+    for run in nee["runs"]:
+        # a PSNR of a short run's linear image may be below 0 dB
+        bench.check_positive(f"[11] NEE {run['seconds']} s", {
+            f"{k} {f}": run[k][f] for k in ("plain", "nee")
+            for f in ("msps", "spp")})
+        if not all(np.isfinite(run[k]["psnr"]) for k in ("plain", "nee")):
+            raise AssertionError(f"[11] NEE PSNR not finite: {run}")
+    bench.check_positive("[11] NEE diet", {
+        "on": nee["diet"]["on"]["msps"], "off": nee["diet"]["off"]["msps"],
+        "truth spp": nee["truth_spp"]})
+    log(f"[11] nee_equal_time at {tenth}: {json.dumps(nee)}")
+    frames = {k: v // BENCH_SHARE for k, v in bench.ADAPTIVE_FRAMES.items()}
+    ada = bench.adaptive_payoff(dev, **frames)
+    bench.check_kinds("[11] adaptive_payoff", ada["launches"], ("k1a",))
+    bench.check_positive("[11] adaptive", {
+        f"{a} {k}": v for a in (False, True) for k, v in ada[a].items()
+        if k != "active"})
+    log(f"[11] adaptive_payoff at {frames}: "
+        f"{json.dumps({str(k): v for k, v in ada.items()})}")
+    held = hold_bench_frames(dev)
+    log(f"[11] the bench ({card_line()}): {time.perf_counter() - t0:.1f} s "
+        f"(bench_torch.py {bench_s:.1f} s, the rows {rows_s:.1f} s)")
+    return dict(out=out, launches=rec["launches"], rows=rows, nee=nee,
+                adaptive=ada, held=held)
+
+
 def main():
     t_start = time.perf_counter()
     dev = phase_device()
     build_s = phase_build()
+    stamp = lambda done: log(f"[t] {done} by "
+                             f"{time.perf_counter() - t_start:.1f} s")
+    stamp("the build")
+    benched = phase_bench(dev)
+    stamp("the bench (11)")
     err_2, k2_ms, k2_plain, k2_bound = phase_k2(dev)
     err_a, ka_ms, pa_ms, cornell_state = phase_kernel_vs_plain(dev)
     err_c, kc_ms, pc_ms, glass_state = phase_k1c_vs_plain(dev)
     err_b, times_b, states_b = phase_k1b_vs_plain(dev)
     err_d, kd_ms, pd_ms = phase_k1d_vs_plain(dev, glass_state)
+    stamp("the kernels against the plain march (1b-2c)")
     launch_a, ms_frame, msps, cornell_calls = phase_main_path(dev)
     k1b_paths_out = phase_k1b_paths(dev)
     analytic_calls = {"cornell 480x480": cornell_calls,
@@ -3856,6 +3869,7 @@ def main():
     mstate, e_c, e_d = phase_metal_state_vs_plain(*metal_path)
     in_frame = phase_in_frame(glass_calls, metal_calls)
     del glass_calls, metal_calls
+    stamp("the frames (3-3f)")
     err_c = max(err_c, e_c, in_frame["glass 1920x1080, K1c"]["err"],
                 in_frame["metal 3840x2160, K1c"]["err"])
     err_d = max(err_d, e_d, in_frame["glass 1920x1080, K1d"]["err"],
@@ -3870,9 +3884,13 @@ def main():
     err_d = max(err_d, mega_cd[f"{GLASS_CALLS}, K1d"]["err"])
     goldens = phase_goldens_megakernel(dev)
     offline_s = phase_offline_app()
+    stamp("the goldens, the megakernel and the offline app (4-3l)")
     nee = nee_phases(dev)
+    stamp("NEE (7a-7f)")
     grads = gradient_phases(dev)
+    stamp("the gradients (8a-8e)")
     bunny_grads = bunny_gradient_phases(dev)
+    stamp("the bunny's gradients (8f-8g)")
     err_c = max(err_c, bunny_grads["scan"][False]["held"]["err"],
                 bunny_grads["train"]["held"]["err"])
     err_d = max(err_d, bunny_grads["scan"][True]["held"]["err"])
@@ -3881,9 +3899,14 @@ def main():
         {mxu: mega_cd[f"{GLASS_CALLS}, {k}"]["supports"]
          for mxu, k in ((False, "K1c"), (True, "K1d"))})
     del cornell_rec, glass_rec
+    stamp("compaction and reprojection (9a-9e)")
     shard = sharded_phases(dev, grads["train"]["s"])
-    err_a = max(err_a, grads["err_a"])
-    err_b = max(err_b, grads["err_b"])
+    stamp("the distributed phases (10a-10f)")
+    err_a = max(err_a, grads["err_a"], *(v["k1a"][1] for v
+                                         in benched["held"].values()))
+    err_b = max(err_b, grads["err_b"], *(v["k1b"][1] for v
+                                         in benched["held"].values()
+                                         if "k1b" in v))
     err_b = max(err_b, *(v["err"] for v in nee["ab"].values()))
     err_c = max(err_c, nee["cd"]["glass NEE shadow, K1c"]["err"])
     err_d = max(err_d, nee["cd"]["glass NEE shadow, K1d"]["err"])
@@ -3897,6 +3920,7 @@ def main():
               "k1c metal": mstate,
               "k1d metal": mstate[:4] + (mstate[4].replace(bunny_mxu=True),)}
     launch_2, roof, bounds = phase_utilization(dev, states)
+    stamp("the utilization (5)")
 
     frame = lambda k: in_frame[k]["ms"] / 4
     log(f"[6] summary: build {build_s:.2f} s; K2 roof {roof / 1e9:.1f} "
@@ -4078,6 +4102,24 @@ def main():
         "mesh_train_launches_per_step": shard["train"]["launches"]}
     kernels[1]["sharded"] = {"engine_reprojected_launches_per_frame": shard[
         "frames"]["engine (8,1) strided, reprojected"]["k1b_per_frame"]}
+    # the bench's launches (11): bench_torch.py's protocols and the
+    # workload rows in their own processes, nee_equal_time and
+    # adaptive_payoff here; each source's count where it launched the kernel
+    sources = {
+        **{f"bench_torch.py {k}": v for k, v in benched["launches"].items()},
+        **{f"workload row {r['name']}": r["launches"]
+           for r in benched["rows"]},
+        "nee_equal_time": benched["nee"]["launches"],
+        "adaptive_payoff": benched["adaptive"]["launches"]}
+    for e, k in zip(kernels[:3], ("k1a", "k1b", "k1c")):
+        e["bench"] = {src: v["march"][k] for src, v in sources.items()
+                      if v["march"][k]}
+    # the calls of 11's held frames, each bit-equal to the plain march
+    for e, k in zip(kernels[:2], ("k1a", "k1b")):
+        e["bench"]["held_calls"] = {f: v[k][0] for f, v
+                                    in benched["held"].items() if k in v}
+    kernels[4]["bench"] = {src: v["k2"] for src, v in sources.items()
+                           if v["k2"]}
     log(f"[end] the smoke ran {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

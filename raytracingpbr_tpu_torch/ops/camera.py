@@ -48,7 +48,11 @@ def pixel_uv(pixel_id: torch.Tensor, width: int, height: int,
     """Flat pixel id (x-major: ``i * height + j``) -> jittered film uv."""
     i = torch.div(pixel_id, height, rounding_mode="floor").to(jx.dtype)
     j = torch.remainder(pixel_id, height).to(jx.dtype)
-    return torch.stack([(i + jx) / width, (j + jy) / height], dim=-1)
+    # divisors on the device: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, one rounding more than the CPU's
+    w, h = (torch.full((), float(k), dtype=jx.dtype, device=jx.device)
+            for k in (width, height))
+    return torch.stack([(i + jx) / w, (j + jy) / h], dim=-1)
 
 
 def vec_to_euler(front: torch.Tensor):

@@ -849,6 +849,32 @@ def test_phased_march_equals_single_call(cuda_device, kind):
     assert torch.equal(res.t, single.t) and torch.equal(res.hit, single.hit)
 
 
+def test_pixel_uv_on_the_card_is_the_cpus(cuda_device):
+    """The Cornell 480x480 primaries (``bench.py``'s utilization rays):
+    ``pixel_uv``'s film coordinates on the card bit-equal to the CPU's
+    (its divisors are tensors on the device: the card's division by a
+    host scalar is a multiply by its reciprocal). The rays ``get_ray``
+    makes from them within 1e-6: the card's ``tan`` of the camera's half
+    angle, its thin-lens ``sqrt``/``sin``/``cos`` and its ``vector_norm``
+    round apart from the CPU's, and making them agree through float64
+    would change the CPU's bits (``tools/ab_get_ray.py`` prints, op by
+    op, the share of lanes bit-equal and the share float64 would keep)."""
+    cfg = cornell.full_config()
+
+    def film_and_rays(dev):
+        pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=dev)
+        u = trng.uniform4(pid, 0, 1, cfg.seed)
+        uv = tcamera.pixel_uv(pid, cfg.width, cfg.height, u[0], u[1])
+        o, d = primaries(cfg, dev)
+        return uv, o, d
+    (uv, o, d), (uv_c, o_c, d_c) = (film_and_rays(cuda_device),
+                                    film_and_rays(torch.device("cpu")))
+    same = (uv.cpu() == uv_c).all(dim=-1)
+    assert bool(same.all()), float(same.double().mean())
+    torch.testing.assert_close(o.cpu(), o_c, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(d.cpu(), d_c, rtol=1e-6, atol=1e-6)
+
+
 def test_reproject_on_the_card_against_the_cpu(cuda_device):
     """``reproject`` on the card against the CPU on the same state: the
     accumulator within rtol 1e-5 on at least 99.9% of the pixels (the

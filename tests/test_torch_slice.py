@@ -161,9 +161,14 @@ def test_import_loads_no_jax():
         "for m in ('apps.offline', 'apps.progressive', 'io.checkpoint',\n"
         "          'utils.validate', 'utils.profiling', 'ops.ibl',\n"
         "          'apps.multihost', 'parallel.scaling', 'ops.reproject',\n"
-        "          'convert', 'utils.speedlight'):\n"
+        "          'convert', 'utils.speedlight', 'bench'):\n"
         "    assert 'raytracingpbr_tpu_torch.' + m in sys.modules, m\n"
-        "import chip_smoke\n"
+        "import chip_smoke, bench_torch\n"
+        "import importlib.util as u\n"
+        "for t in ('bench_workloads_torch', 'bench_nee_torch',\n"
+        "          'bench_adaptive_torch', 'ab_get_ray'):\n"
+        "    s = u.spec_from_file_location(t, f'tools/{t}.py')\n"
+        "    s.loader.exec_module(u.module_from_spec(s))\n"
         "bad = [m for m in ('jax', 'flax', 'raytracingpbr_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n")
