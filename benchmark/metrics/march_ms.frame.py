@@ -1,0 +1,10 @@
+"""Per-layer metric ``march_ms.frame`` (ms): the device time of the march
+kernels (K1a-K1d, by name) a displayed frame. Returns None where the traced
+run has nothing to read."""
+
+
+def read(tr):
+    ks = tr.march_kernels()
+    if tr.kind != "frames" or not ks or not tr.units:
+        return None
+    return sum(d for _, _, d in ks) / 1e3 / tr.units
