@@ -87,7 +87,8 @@ def run(scene, env, cam, cfg, out_dir: str, minutes: float = 1.0,
         return (compactlib.uncompact_frame_state(st, pixel_id)
                 if compacting else st)
 
-    log = MetricsLogger(metrics_path)
+    log = MetricsLogger(metrics_path,
+                        samples=float(state.accum[:, 3].double().sum()))
     deadline = time.time() + minutes * 60
     img = None
     done = 0

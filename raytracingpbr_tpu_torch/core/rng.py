@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from ..utils.profiling import traced
+
 _MASK = 0xFFFFFFFF
 _PCG_MULT = 1664525
 _PCG_INC = 1013904223
@@ -77,6 +79,7 @@ def _to_unit_float(u: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (u >> 8).to(dtype) * _INV_2_24
 
 
+@traced("rng")
 def uniform4(pixel_id: torch.Tensor, step, stream: int, seed: int = 0,
              dtype=torch.float32):
     """Four independent uniforms in [0, 1) per counter.
@@ -102,6 +105,7 @@ _R2_A = tuple(int(round(((1.0 / _PHI4) ** (k + 1) % 1.0) * 2.0**32))
 _R2_Y = 0x9E3779B9
 
 
+@traced("rng")
 def r2_uniform4(pixel_id: torch.Tensor, step, stream: int, seed: int = 0,
                 dtype=torch.float32):
     """The ``step``-th point of the 4D R2 sequence, rotated per pixel:

@@ -11,8 +11,10 @@ from ..core import rng as rnglib
 from ..core.device import resolve
 from ..core.math import normalize, radians
 from ..core.types import Camera, Rays
+from ..utils.profiling import traced
 
 
+@traced("camera")
 def get_ray(cam: Camera, uv: torch.Tensor, u1: torch.Tensor,
             u2: torch.Tensor) -> Rays:
     """Primary rays for film coordinates ``uv`` (N, 2) in [0, 1]^2: origin

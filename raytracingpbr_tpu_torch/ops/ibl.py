@@ -17,6 +17,7 @@ import torch
 
 from ..core.device import resolve
 from ..core.math import brightness, mix, sample_spherical_map
+from ..utils.profiling import traced
 
 
 class SkyKind(str, enum.Enum):
@@ -123,6 +124,7 @@ def _texture_bilinear(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return mix(mix(c00, c10, tx), mix(c01, c11, tx), ty)
 
 
+@traced("sky")
 def sky_color(env: Environment, direction: torch.Tensor) -> torch.Tensor:
     """Environment radiance along ``direction`` (N, 3) -> (N, 3)."""
     kind = SkyKind(env.kind)

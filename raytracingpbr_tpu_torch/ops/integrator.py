@@ -48,6 +48,7 @@ from ..core import rng as rnglib
 from ..core.math import brightness
 from ..core.types import (NO_HIT_T, Camera, FrameState, Rays,
                           make_frame_state, refresh)
+from ..utils import profiling
 from . import camera as cameralib
 from . import march as marchlib
 from . import post as postlib
@@ -293,6 +294,7 @@ def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
     return traced, t, hit, nee, next_sky_w, completed, resume_out
 
 
+@profiling.traced("step")
 def wavefront_step(scene: Scene, env: Environment, cam: Camera, rays: Rays,
                    accum: torch.Tensor, pixel_id: torch.Tensor, step,
                    cfg: RenderConfig, active: Optional[torch.Tensor] = None,
@@ -438,6 +440,7 @@ def render_frame(scene: Scene, env: Environment, cam: Camera,
                              refreshing=refreshing, exposure=exposure)
 
 
+@profiling.traced("frame")
 def render_frame_tile(scene: Scene, env: Environment, cam: Camera,
                       state: FrameState, cfg: RenderConfig,
                       pixel_id: torch.Tensor, refreshing=False,
@@ -524,6 +527,12 @@ EXIT_CHECK_EVERY = 1
 _MASK = 0xFFFFFFFF
 
 
+def any_alive(alive: torch.Tensor) -> bool:
+    """Whether any lane is alive: a host sync, in the ``sync`` span."""
+    with profiling.span("sync"):
+        return bool(alive.any())
+
+
 class TraceResult(NamedTuple):
     color: torch.Tensor    # (N, 3) radiance estimate per ray
     bounces: torch.Tensor  # (N,) i32 bounce count (diagnostics)
@@ -601,95 +610,100 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
     with contextlib.nullcontext() if differentiable else torch.no_grad():
         i = 0
         while i < max_bounce:
-            counter = (base + i) & _MASK
-            if cfg.roulette == Roulette.EXP:
-                # a lane that dies keeps its colour times the probability,
-                # and one that survives gets no 1/p (the reference's quirk)
-                inv_pdf = torch.exp(torch.tensor(i, dtype=dtype)
-                                    / cfg.light_quality)
-                roulette_prob = float(1.0 - 1.0 / inv_pdf)
-                u = rnglib.uniform(pixel_id, counter, _S_ROULETTE, cfg.seed,
-                                   dtype)
-                die = u < roulette_prob
-                color = torch.where((alive & die)[:, None],
-                                    color * roulette_prob, color)
-                alive = alive & ~die
-            # (DEPTH_LINEAR roulette belongs to the wavefront.)
-
-            res = marchlib.march(scene, origin, direction, cfg,
-                                 differentiable=bool(differentiable),
-                                 active=alive)
-
-            u4 = rnglib.uniform4(pixel_id, counter, _S_SHADE, cfg.seed,
-                                 dtype)
-            mat = scenelib.materials_at(scene, res.index)
-            if diffuse_only:
-                normal = scenelib.calc_normal(scene, res.index, res.position)
-                outer = (direction * normal).sum(-1) < 0.0
-                normal = _where(outer, normal, -normal)
-                new_dir = rnglib.hemispheric(normal, u4[0], u4[1])
-                new_origin = res.position
-                color_scale = mat.albedo
-                inter = None
-            else:
-                inter = shadelib.ray_surface_interaction(
-                    scene, res.index, res.position, direction, u4, cfg,
-                    roughness_fresnel=roughness_fresnel,
-                    restart_at_hit=restart_at_hit,
-                    reflect_kill=reflect_kill)
-                new_dir, new_origin = inter.direction, inter.origin
-                color_scale = inter.color_scale
-                normal = inter.normal
-
-            # hit: throughput, emission, brightness termination
-            color_hit = color * color_scale
-            intensity = brightness(color_hit)
-            color_hit = color_hit * mat.emission
-            visible = brightness(color_hit)
-            stop_hit = ((intensity < visible) | (visible < cfg.visibility[0])
-                        | (visible > cfg.visibility[1]))
-            # miss: the sky, and stop (black_background is the wavefront's)
-            color_miss = color * sky_color(env, direction)
-
-            if cfg.env_sampling:
-                color_miss = color_miss * sky_w[:, None]
-                # no bank on the last bounce: the loop ends before the sky
-                # lookup it stands in for
-                gate = alive & res.hit & ~stop_hit & (i < max_bounce - 1)
-                if diffuse_only:
-                    nee, _ = _nee_env(scene, env, res.index, res.position,
-                                      direction, normal,
-                                      torch.ones_like(gate), mat.albedo,
-                                      gate, pixel_id, counter, cfg,
-                                      lobe_prob=False)
-                else:
-                    nee, _ = _nee_env(scene, env, res.index, res.position,
-                                      direction, normal, inter.outer,
-                                      mat.albedo, gate, pixel_id, counter,
-                                      cfg, roughness_fresnel=roughness_fresnel,
-                                      reflect_kill=reflect_kill)
+            with profiling.span("bounce"):
+                counter = (base + i) & _MASK
                 if cfg.roulette == Roulette.EXP:
-                    nee = nee * torch.exp(-(torch.tensor(i, dtype=dtype)
-                                            + 1.0) / cfg.light_quality)
-                radiance = radiance + _where(gate, color * nee,
-                                             torch.zeros_like(nee))
-                nsw = _next_sky_w(
-                    scene, env, res.index, direction, inter, new_dir, gate,
-                    cfg, roughness_fresnel=roughness_fresnel,
-                    reflect_kill=reflect_kill,
-                    diffuse=torch.ones_like(gate) if diffuse_only else None)
-                sky_w = torch.where(alive, nsw, sky_w)
+                    # a lane that dies keeps its colour times the probability,
+                    # and one that survives gets no 1/p (the reference's quirk)
+                    inv_pdf = torch.exp(torch.tensor(i, dtype=dtype)
+                                        / cfg.light_quality)
+                    roulette_prob = float(1.0 - 1.0 / inv_pdf)
+                    u = rnglib.uniform(pixel_id, counter, _S_ROULETTE,
+                                       cfg.seed, dtype)
+                    die = u < roulette_prob
+                    color = torch.where((alive & die)[:, None],
+                                        color * roulette_prob, color)
+                    alive = alive & ~die
+                # (DEPTH_LINEAR roulette belongs to the wavefront.)
 
-            on = alive & res.hit
-            color = _where(on, color_hit,
-                           _where(alive & ~res.hit, color_miss, color))
-            origin = _where(on, new_origin, origin)
-            direction = _where(on, new_dir, direction)
-            bounces = bounces + on.to(torch.int32)
-            alive = on & ~stop_hit
-            i += 1
-            if i % EXIT_CHECK_EVERY == 0 and not bool(alive.any()):
-                break
+                res = marchlib.march(scene, origin, direction, cfg,
+                                     differentiable=bool(differentiable),
+                                     active=alive)
+
+                u4 = rnglib.uniform4(pixel_id, counter, _S_SHADE, cfg.seed,
+                                     dtype)
+                mat = scenelib.materials_at(scene, res.index)
+                if diffuse_only:
+                    normal = scenelib.calc_normal(scene, res.index,
+                                                  res.position)
+                    outer = (direction * normal).sum(-1) < 0.0
+                    normal = _where(outer, normal, -normal)
+                    new_dir = rnglib.hemispheric(normal, u4[0], u4[1])
+                    new_origin = res.position
+                    color_scale = mat.albedo
+                    inter = None
+                else:
+                    inter = shadelib.ray_surface_interaction(
+                        scene, res.index, res.position, direction, u4, cfg,
+                        roughness_fresnel=roughness_fresnel,
+                        restart_at_hit=restart_at_hit,
+                        reflect_kill=reflect_kill)
+                    new_dir, new_origin = inter.direction, inter.origin
+                    color_scale = inter.color_scale
+                    normal = inter.normal
+
+                # hit: throughput, emission, brightness termination
+                color_hit = color * color_scale
+                intensity = brightness(color_hit)
+                color_hit = color_hit * mat.emission
+                visible = brightness(color_hit)
+                stop_hit = ((intensity < visible)
+                            | (visible < cfg.visibility[0])
+                            | (visible > cfg.visibility[1]))
+                # miss: the sky, and stop (black_background is the wavefront's)
+                color_miss = color * sky_color(env, direction)
+
+                if cfg.env_sampling:
+                    color_miss = color_miss * sky_w[:, None]
+                    # no bank on the last bounce: the loop ends before the sky
+                    # lookup it stands in for
+                    gate = alive & res.hit & ~stop_hit & (i < max_bounce - 1)
+                    if diffuse_only:
+                        nee, _ = _nee_env(scene, env, res.index, res.position,
+                                          direction, normal,
+                                          torch.ones_like(gate), mat.albedo,
+                                          gate, pixel_id, counter, cfg,
+                                          lobe_prob=False)
+                    else:
+                        nee, _ = _nee_env(scene, env, res.index, res.position,
+                                          direction, normal, inter.outer,
+                                          mat.albedo, gate, pixel_id, counter,
+                                          cfg,
+                                          roughness_fresnel=roughness_fresnel,
+                                          reflect_kill=reflect_kill)
+                    if cfg.roulette == Roulette.EXP:
+                        nee = nee * torch.exp(-(torch.tensor(i, dtype=dtype)
+                                                + 1.0) / cfg.light_quality)
+                    radiance = radiance + _where(gate, color * nee,
+                                                 torch.zeros_like(nee))
+                    nsw = _next_sky_w(
+                        scene, env, res.index, direction, inter, new_dir, gate,
+                        cfg, roughness_fresnel=roughness_fresnel,
+                        reflect_kill=reflect_kill,
+                        diffuse=(torch.ones_like(gate) if diffuse_only
+                                 else None))
+                    sky_w = torch.where(alive, nsw, sky_w)
+
+                on = alive & res.hit
+                color = _where(on, color_hit,
+                               _where(alive & ~res.hit, color_miss, color))
+                origin = _where(on, new_origin, origin)
+                direction = _where(on, new_dir, direction)
+                bounces = bounces + on.to(torch.int32)
+                alive = on & ~stop_hit
+                i += 1
+                if i % EXIT_CHECK_EVERY == 0 and not any_alive(alive):
+                    break
     if cfg.env_sampling:
         color = color + radiance
     # paths still alive after max_raytrace bounces keep their colour

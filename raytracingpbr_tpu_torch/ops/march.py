@@ -35,6 +35,7 @@ import torch
 from ..config import HitCriterion, OmegaPolicy, RenderConfig
 from ..core.math import dot
 from ..kernels import march_kernel
+from ..utils.profiling import traced
 from . import scene as scenelib
 from .compact import actives_first_perm
 from .scene import Scene
@@ -243,6 +244,7 @@ def assert_march_close(scene: Scene, origin: torch.Tensor,
     return err, int(excused.sum()), split, apart
 
 
+@traced("march")
 def march_resumable(scene: Scene, origin: torch.Tensor,
                     direction: torch.Tensor, cfg: RenderConfig,
                     active: Optional[torch.Tensor] = None,

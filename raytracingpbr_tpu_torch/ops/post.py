@@ -7,6 +7,7 @@ import torch
 
 from ..config import RenderConfig, Tonemap
 from ..core.math import brightness
+from ..utils.profiling import traced
 
 # Stephen Hill's fitted ACES matrices, applied as M @ rgb.
 ACES_INPUT = ((0.59719, 0.35458, 0.04823),
@@ -63,6 +64,7 @@ def tonemap(rgb: torch.Tensor, cfg: RenderConfig, exposure=1.0):
     return out
 
 
+@traced("post")
 def post_process(accum: torch.Tensor, cfg: RenderConfig, exposure=1.0,
                  last_pixels=None, diff_accum=None):
     """Tonemapped mean plus the adaptive-sampling noise estimate (running

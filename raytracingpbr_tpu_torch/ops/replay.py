@@ -269,7 +269,7 @@ def _forward(static: _Static, scene, env, origin, direction, color0,
     bz_tot = torch.zeros_like(color0) if env_s else None
     rec = []
     n_bounce = 0
-    while n_bounce < cfg.max_raytrace and bool(alive.any()):
+    while n_bounce < cfg.max_raytrace and integ.any_alive(alive):
         out = _bounce_state(static, scene, env, origin, direction, color,
                             alive, pixel_id, n_bounce, sample_idx, zcount,
                             pnz, prev_sky_w=sky_w)

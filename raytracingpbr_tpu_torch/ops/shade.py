@@ -13,6 +13,7 @@ import torch
 from ..config import RenderConfig
 from ..core import rng as rnglib
 from ..core.math import dot, mix, normalize
+from ..utils.profiling import traced
 from . import scene as scenelib
 from .scene import Scene
 
@@ -153,6 +154,7 @@ def specular_env_density(scene: Scene, index: torch.Tensor,
     return torch.where(dot(omega_l, normal) > 0.0, p, torch.zeros_like(p))
 
 
+@traced("shade")
 def ray_surface_interaction(scene: Scene, index: torch.Tensor,
                             position: torch.Tensor, direction: torch.Tensor,
                             u: tuple, cfg: RenderConfig,

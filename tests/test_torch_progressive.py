@@ -229,6 +229,11 @@ def test_nee_needs_an_hdr_sky(tmp_path):
 
 
 def test_frame_stats_match_jax(tmp_path):
+    """Every field but ``samples_per_s`` is the JAX package's. That one is
+    the frame's own rate in the port: the samples the frame completed (the
+    accumulated count's growth since the last frame, the whole count after
+    a refresh zeroed it) over its seconds; the JAX package divides the
+    whole count by one frame's seconds."""
     rng = np.random.default_rng(0)
     pixels = rng.random((64, 3)).astype(np.float32)
     accum = rng.random((64, 4)).astype(np.float32) * 8
@@ -236,12 +241,35 @@ def test_frame_stats_match_jax(tmp_path):
     b = JLogger(str(tmp_path / "b.jsonl"))
     got = a.frame_stats(pixels, accum, 0.25, frame=3)
     ref = b.frame_stats(pixels, accum, 0.25, frame=3)
+    total = float(accum[:, 3].astype(np.float64).sum())
+    assert got.pop("samples_per_s") == pytest.approx(total / 0.25, rel=1e-12)
+    ref.pop("samples_per_s")
+    assert got == ref
+    first = ref
+    # the next frame adds 2 samples a pixel in 0.5 s
+    accum2 = accum.copy()
+    accum2[:, 3] += 2.0
+    got = a.frame_stats(pixels, accum2, 0.5, frame=4)
+    ref = b.frame_stats(pixels, accum2, 0.5, frame=4)
+    grown = float(accum2[:, 3].astype(np.float64).sum()) - total
+    assert grown == pytest.approx(128.0, rel=1e-6)
+    assert got.pop("samples_per_s") == pytest.approx(grown / 0.5, rel=1e-12)
+    ref.pop("samples_per_s")
+    assert got == ref
+    # a refresh zeroed the count: the frame's own samples are all of it
+    fresh = accum.copy()
+    fresh[:, 3] = 1.0
+    got = a.frame_stats(pixels, fresh, 0.1, frame=5)
+    assert got["samples_per_s"] == pytest.approx(64 / 0.1)
+    # a logger started on a resumed state counts from that state's samples
+    c = MetricsLogger(None, samples=total)
+    assert c.frame_stats(pixels, accum2, 0.5)["samples_per_s"] == \
+        pytest.approx(grown / 0.5, rel=1e-12)
     a.close()
     b.close()
-    assert got == ref
     with open(tmp_path / "a.jsonl") as f:
-        line = json.loads(f.read())
-    assert line["frame"] == 3 and line["mean_spp"] == ref["mean_spp"]
+        line = json.loads(f.readline())
+    assert line["frame"] == 3 and line["mean_spp"] == first["mean_spp"]
 
 
 def test_validate():

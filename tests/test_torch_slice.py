@@ -166,7 +166,8 @@ def test_import_loads_no_jax():
         "import chip_smoke, bench_torch\n"
         "import importlib.util as u\n"
         "for t in ('bench_workloads_torch', 'bench_nee_torch',\n"
-        "          'bench_adaptive_torch', 'ab_get_ray'):\n"
+        "          'bench_adaptive_torch', 'ab_get_ray',\n"
+        "          'trace_layers_torch'):\n"
         "    s = u.spec_from_file_location(t, f'tools/{t}.py')\n"
         "    s.loader.exec_module(u.module_from_spec(s))\n"
         "bad = [m for m in ('jax', 'flax', 'raytracingpbr_tpu')\n"
