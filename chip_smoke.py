@@ -10,8 +10,9 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     CPU fallback).
 1.  build every kernel from ``raytracingpbr_tpu_torch/csrc``, one nvcc per
     source started together (march.cu: K1a, K1b, K1c; march_mxu.cu: K1d;
-    speedlight.cu: K2), and print what ``-Xptxas -v`` says of each library
-    and the persistent grid of K1c and K1d.
+    speedlight.cu: K2; rng.cu: the counter RNG), and print what
+    ``-Xptxas -v`` says of each library and the persistent grid of K1c
+    and K1d.
 11. the bench, right after the build: ``python3 bench_torch.py`` and
     ``python3 tools/bench_workloads_torch.py`` as fresh processes, as a
     user runs them: rc 0; ``bench.py``'s eleven keys and ``device``, every
@@ -286,6 +287,15 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     card against the CPU; how often the card's division by a host scalar
     (a multiply by its reciprocal) rounds apart from the CPU's, against a
     divisor that is a tensor on the card.
+12. the counter RNG kernel (``csrc/rng.cu``): alone at 230,400 and
+    2,073,600 lanes (``uniform4`` and ``uniform`` with the step on the
+    card, ``r2_uniform4`` with one a lane), back to back on inputs the L2
+    does not hold, against its byte bound, the plain draw beside it; one
+    glass frame at 1920x1080 with every draw recorded (3 a step, one
+    launch each) and held bit-equal to the plain draw, and the same frame
+    with the plain draws bit-identical in pixels and state; one scan-AD
+    step of the Cornell box at 8 bounces with every draw held, its albedo
+    gradient within rtol 1e-5 of the plain draws' step.
 
 The protocols that time frames, passes and steps (3, 3b, 3c, 3f, 3g-3i,
 7b, 7c, 8a-8c, 8f, 9b) are ``raytracingpbr_tpu_torch/bench.py``'s, as are
@@ -302,12 +312,15 @@ step (8g), and the 8f step's calls' time, bound and share;
 each with its 9a phased calls, its 9b phased passes and its launches in
 9c-9d; K1a with its sharded paths' launches in 10a-10e, K1b with the
 reprojected engine frame's in 10b; K1a, K1b, K1c and K2 with the bench's
-launches in 11, by source),
+launches in 11, by source; the RNG kernel with its launches and draws in
+12's frame and step, its times alone against its bound, and the bench's
+launches by source),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no jax.
 """
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import shutil
@@ -328,11 +341,13 @@ from raytracingpbr_tpu_torch.apps import (denoise_demo, interactive,
 from raytracingpbr_tpu_torch.bench import (albedo_grad, bunny_config,
                                            card_line, grad_config, k1b_paths,
                                            metal_config, sun_sky)
+from raytracingpbr_tpu_torch.core import rng as trng
 from raytracingpbr_tpu_torch.core.types import make_frame_state
 from raytracingpbr_tpu_torch.io import checkpoint as ckpt
 from raytracingpbr_tpu_torch.io import image as imageio
 from raytracingpbr_tpu_torch.io.image import read_png
-from raytracingpbr_tpu_torch.kernels import build, fma_kernel, march_kernel
+from raytracingpbr_tpu_torch.kernels import (build, fma_kernel, march_kernel,
+                                             rng_kernel)
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.models.goldens import GOLDENS, render_golden
 from raytracingpbr_tpu_torch.ops import ibl, integrator, march
@@ -440,6 +455,11 @@ DENOISE_HELD = 10
 # share of the NEE and adaptive benches' budgets and frames run here
 BENCH_TIMEOUT = 600
 BENCH_SHARE = 10
+# the RNG kernel alone (12): the Cornell and glass frames' lanes, the
+# launches timed back to back, the card's memory bandwidth (B/s)
+RNG_LANES = (230_400, 2_073_600)
+RNG_REPS = 100
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(*a):
@@ -489,11 +509,12 @@ def phase_build():
     march_kernel.load("march")
     march_kernel.load("march_mxu")
     fma_kernel.load()
+    rng_kernel.load()
     secs = time.perf_counter() - t0
     libs = ", ".join(os.path.relpath(p, REPO) for p in paths.values())
     log(f"[1] built {libs} in {secs:.2f} s (one nvcc per source, in parallel)")
     for name, label in (("march", "K1a-K1c"), ("march_mxu", "K1d"),
-                        ("speedlight", "K2")):
+                        ("speedlight", "K2"), ("rng", "the RNG")):
         log(f"[1] ptxas {label} ({name}.cu): "
             f"{ptxas_summary(build.ptxas_report(name))}")
     for kind in ("k1c", "k1d"):
@@ -3837,6 +3858,174 @@ def phase_bench(dev):
                 adaptive=ada, held=held)
 
 
+# --- 12: the counter RNG kernel ----------------------------------------------
+
+
+def record_draws(fn):
+    """Runs ``fn()`` with every CUDA draw's arguments and outputs recorded
+    (cloned). Returns (what fn returned, [(pixel_id, step, stream, seed,
+    dtype, rows, r2, outputs)])."""
+    real, draws = rng_kernel.draw, []
+
+    def record(pixel_id, step, stream, seed=0, dtype=torch.float32, rows=4,
+               r2=False):
+        out = real(pixel_id, step, stream, seed, dtype, rows=rows, r2=r2)
+        keep = step.clone() if isinstance(step, torch.Tensor) else step
+        draws.append((pixel_id.clone(), keep, stream, seed, dtype, rows, r2,
+                      tuple(o.clone() for o in out)))
+        return out
+    rng_kernel.draw = record
+    try:
+        result = fn()
+    finally:
+        rng_kernel.draw = real
+    torch.cuda.synchronize()
+    return result, draws
+
+
+def plain_draw(pixel_id, step, stream, seed=0, dtype=torch.float32, rows=4,
+               r2=False):
+    """``rng_kernel.draw``'s stand-in: the plain draw on the same
+    tensors."""
+    f = trng.r2_uniform4_plain if r2 else trng.uniform4_plain
+    return f(pixel_id, step, stream, seed, dtype)[:rows]
+
+
+def with_plain_draws(fn):
+    """``fn()`` with every CUDA draw made by the plain draws."""
+    real = rng_kernel.draw
+    rng_kernel.draw = plain_draw
+    try:
+        return fn()
+    finally:
+        rng_kernel.draw = real
+
+
+def hold_draws(label, draws):
+    """Each recorded draw bit-equal to the plain draw on its inputs.
+    Returns the draws by mode and rows."""
+    kinds = {}
+    for pid, step, stream, seed, dtype, rows, r2, out in draws:
+        ref = plain_draw(pid, step, stream, seed, dtype, rows, r2)
+        for k, (a, b) in enumerate(zip(out, ref)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{label}: draw (stream {stream}, r2 {r2}) row {k}: "
+                    f"{int((a != b).sum())} of {a.numel()} lanes differ")
+        key = f"{'r2_uniform4' if r2 else 'uniform4'} x{rows}"
+        kinds[key] = kinds.get(key, 0) + 1
+    log(f"[12] {label}: every draw bit-equal to the plain draw: {kinds}")
+    return kinds
+
+
+def rng_alone(dev):
+    """The kernel alone at the Cornell frame's 230,400 lanes and the glass
+    frame's 2,073,600: back to back (:func:`device_ms`), each launch on
+    ids and steps that the three before it did not touch (4 sets of
+    inputs, above the 50 MB L2 at 2 M lanes), against its byte bound:
+    the ids (8 B) and a per-lane step (8 B) read once, the floats (4 B a
+    row) written once, at 3.35 TB/s. The plain draw beside it (CUDA
+    events, median)."""
+    out = {}
+    for n in RNG_LANES:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        pids = [torch.randint(0, 2**32, (n,), generator=gen,
+                              dtype=torch.int64, device=dev)
+                for _ in range(4)]
+        lanes = [torch.randint(0, 2**32, (n,), generator=gen,
+                               dtype=torch.int64, device=dev)
+                 for _ in range(4)]
+        frame = torch.tensor(41, device=dev)
+        for label, fn, rows, lane in (
+                ("uniform4, step on the card", trng.uniform4, 4, False),
+                ("uniform, step on the card", trng.uniform, 1, False),
+                ("r2_uniform4, step a lane", trng.r2_uniform4, 4, True)):
+            turn = itertools.cycle(range(4))
+
+            def call(fn=fn, lane=lane, turn=turn):
+                k = next(turn)
+                return fn(pids[k], lanes[k] if lane else frame, 1, 7)
+            ms = device_ms(call, reps=RNG_REPS)
+            plain = (trng.r2_uniform4_plain if fn is trng.r2_uniform4
+                     else trng.uniform4_plain)
+            plain_ms = median_ms(lambda: plain(
+                pids[0], lanes[0] if lane else frame, 1, 7))
+            nbytes = n * (8 + (8 if lane else 0) + 4 * rows)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            key = f"{label}, {n} lanes"
+            out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bytes_per_lane": nbytes // n, "share": bound / ms}
+            log(f"[12] {key}: kernel {ms:.5f} ms back to back, plain "
+                f"{plain_ms:.4f} ms; bound {bound:.5f} ms ({nbytes // n} B "
+                f"a lane), share {100 * bound / ms:.1f}%")
+    return out
+
+
+def phase_rng(dev):
+    """12: the counter RNG kernel. Alone (:func:`rng_alone`). Then one
+    glass frame at 1920x1080 (``bunny_config``, the scene animated to
+    frame 12, after two frames from a fresh state) with every draw
+    recorded: 3 draws a step, one launch each, every one bit-equal to the
+    plain draw; the same frame from the same state with the plain draws:
+    pixels and state bit-identical. Then one scan-AD step of the Cornell
+    box at 8 bounces (8a's) with every draw recorded and held; its
+    albedo gradient against the same step with the plain draws within
+    rtol 1e-5 (``index_add_``'s atomics). Returns what the kernels line
+    reads."""
+    out = {"alone": rng_alone(dev)}
+    cfg = bunny_config()
+    scene = bunny.animated_scene(bunny.glass_scene(dev),
+                                 torch.tensor(12.0, device=dev))
+    env = bunny.glass_environment(device=dev)
+    cam = bunny.camera(cfg.width / cfg.height, dev)
+    state = make_frame_state(cfg.num_pixels, device=dev)
+    for _ in range(2):
+        _, state = render_frame(scene, env, cam, state, cfg)
+    rng_kernel.reset_launches()
+    (px, st), draws = record_draws(
+        lambda: render_frame(scene, env, cam, state, cfg))
+    frame_launches = dict(rng_kernel.LAUNCHES)
+    steps = cfg.samples_per_frame * cfg.samples_per_pixel
+    if not (sum(frame_launches.values()) == len(draws) == 3 * steps):
+        raise AssertionError(f"[12] glass frame: {len(draws)} draws, "
+                             f"launches {frame_launches}, {steps} steps")
+    frame = hold_draws(f"glass frame {cfg.width}x{cfg.height}", draws)
+    del draws
+    px_p, st_p = with_plain_draws(
+        lambda: render_frame(scene, env, cam, state, cfg))
+    torch.cuda.synchronize()
+    same = [k for k in ("accum", "respawn", "hit_t", "march_state",
+                        "march_cum") if torch.equal(getattr(st, k),
+                                                    getattr(st_p, k))]
+    if not torch.equal(px, px_p) or len(same) != 5:
+        raise AssertionError(f"[12] glass frame with the plain draws: "
+                             f"pixels equal {torch.equal(px, px_p)}, "
+                             f"state fields equal {same}")
+    log(f"[12] glass frame: pixels and state bit-identical with the plain "
+        f"draws; {frame_launches} launches")
+    del px, st, px_p, st_p, state
+
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    gcfg = grad_config(8)
+    rng_kernel.reset_launches()
+    g, draws = record_draws(
+        lambda: albedo_grad(scene, env, cam, gcfg, True, 5))
+    step_launches = dict(rng_kernel.LAUNCHES)
+    if sum(step_launches.values()) != len(draws) or not draws:
+        raise AssertionError(f"[12] scan-AD step: {len(draws)} draws, "
+                             f"launches {step_launches}")
+    step = hold_draws("Cornell scan-AD step, 8 bounces", draws)
+    g_p = with_plain_draws(
+        lambda: albedo_grad(scene, env, cam, gcfg, True, 5))
+    torch.testing.assert_close(g, g_p, rtol=1e-5, atol=0)
+    log(f"[12] scan-AD step: the albedo gradient within rtol 1e-5 of the "
+        f"plain draws' step; {step_launches} launches")
+    out.update(frame=frame, frame_launches=frame_launches, step=step,
+               step_launches=step_launches)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     dev = phase_device()
@@ -3846,6 +4035,8 @@ def main():
     stamp("the build")
     benched = phase_bench(dev)
     stamp("the bench (11)")
+    drawn = phase_rng(dev)
+    stamp("the RNG kernel (12)")
     err_2, k2_ms, k2_plain, k2_bound = phase_k2(dev)
     err_a, ka_ms, pa_ms, cornell_state = phase_kernel_vs_plain(dev)
     err_c, kc_ms, pc_ms, glass_state = phase_k1c_vs_plain(dev)
@@ -4120,6 +4311,23 @@ def main():
                                     in benched["held"].items() if k in v}
     kernels[4]["bench"] = {src: v["k2"] for src, v in sources.items()
                            if v["k2"]}
+    # the counter RNG (12): no TPU kernel (the JAX package's RNG is XLA)
+    alone = drawn["alone"]
+    kernels.append({
+        "name": "rng", "route": "cuda", "source": f"{CSRC}/rng.cu",
+        "replaces": "raytracingpbr_tpu/core/rng.py (XLA, no Pallas kernel)",
+        "launches": {"glass frame": drawn["frame_launches"],
+                     "Cornell scan-AD step": drawn["step_launches"]},
+        "draws": {"glass frame": drawn["frame"],
+                  "Cornell scan-AD step": drawn["step"]},
+        "max_abs_err": 0.0, "ms": {k: v["ms"] for k, v in alone.items()},
+        "plain_ms": {k: v["plain_ms"] for k, v in alone.items()},
+        "bound_ms": {k: v["bound_ms"] for k, v in alone.items()},
+        "bound_by": "bytes", "share": {k: v["share"]
+                                       for k, v in alone.items()},
+        "library_ms": None,
+        "bench": {src: v["rng"] for src, v in sources.items()
+                  if any(v.get("rng", {}).values())}})
     log(f"[end] the smoke ran {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -12,7 +12,7 @@ kernels (``kernels/build.py``); each protocol makes that call outside its
 timed window. Sample counts are summed in float64: a float32 sum stops
 counting exactly above 2**24. The kernels' launch counts
 (``kernels/march_kernel.LAUNCHES`` and ``BOUND_LAUNCHES``,
-``kernels/fma_kernel.LAUNCHES``) are set to 0 where a protocol's counted
+``kernels/fma_kernel.LAUNCHES``, ``kernels/rng_kernel.LAUNCHES``) are set to 0 where a protocol's counted
 run starts and read where it ends. On the CPU the plain march runs and
 nothing is launched.
 """
@@ -30,7 +30,7 @@ from .config import HitCriterion, OmegaPolicy, RenderConfig
 from .core import rng
 from .core.device import resolve
 from .core.types import make_camera, make_frame_state
-from .kernels import fma_kernel, march_kernel
+from .kernels import fma_kernel, march_kernel, rng_kernel
 from .models import bunny, cornell, demo
 from .ops import camera, ibl
 from .ops import compact as compactlib
@@ -94,14 +94,16 @@ def _sync(device: torch.device) -> None:
 def reset_launches() -> None:
     march_kernel.reset_launches()
     fma_kernel.reset_launches()
+    rng_kernel.reset_launches()
 
 
 def launches() -> dict:
     """The launch counts since :func:`reset_launches`: each march kernel's,
-    its escape-bound (shadow-ray) share, and K2's."""
+    its escape-bound (shadow-ray) share, K2's and the RNG kernel's."""
     return {"march": dict(march_kernel.LAUNCHES),
             "bound": dict(march_kernel.BOUND_LAUNCHES),
-            "k2": fma_kernel.LAUNCHES["k2"]}
+            "k2": fma_kernel.LAUNCHES["k2"],
+            "rng": dict(rng_kernel.LAUNCHES)}
 
 
 def sample_count(state) -> float:

@@ -5,11 +5,17 @@ uniform words, so every draw is a pure function of its counter and the
 renderer needs no ``torch.Generator``. Results are bit-exact against the JAX
 package.
 
-PyTorch has no complete uint32 arithmetic, so the words live in int64
-tensors holding values in [0, 2**32), masked after every add and multiply.
-A product of two such words can exceed 2**63, so ``_mul32`` splits one
-factor into 16-bit halves: every partial product stays below 2**49 and the
-low 32 bits are exact without relying on signed wrap-around.
+:func:`uniform4`, :func:`uniform` and :func:`r2_uniform4` send CUDA tensors
+to the hand-written kernel (``kernels/rng_kernel``: one launch a draw, no
+host sync) and CPU tensors to the plain draws below (``*_plain``), which
+are also the kernel's reference; the kernel is bit-equal to them.
+
+PyTorch has no complete uint32 arithmetic, so the plain words live in
+int64 tensors holding values in [0, 2**32), masked after every add and
+multiply. A product of two such words can exceed 2**63, so ``_mul32``
+splits one factor into 16-bit halves: every partial product stays below
+2**49 and the low 32 bits are exact without relying on signed
+wrap-around.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import math
 
 import torch
 
+from ..kernels import rng_kernel
 from ..utils.profiling import traced
 
 _MASK = 0xFFFFFFFF
@@ -79,6 +86,19 @@ def _to_unit_float(u: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (u >> 8).to(dtype) * _INV_2_24
 
 
+def uniform4_plain(pixel_id: torch.Tensor, step, stream: int, seed: int = 0,
+                   dtype=torch.float32):
+    """:func:`uniform4` in plain PyTorch on int64 words."""
+    a, b, c, d = pcg4d(_u32(pixel_id, pixel_id), _u32(step, pixel_id),
+                       _u32(stream, pixel_id), _u32(seed, pixel_id))
+    return tuple(_to_unit_float(v, dtype) for v in (a, b, c, d))
+
+
+def uniform_plain(pixel_id, step, stream, seed=0, dtype=torch.float32):
+    """:func:`uniform` in plain PyTorch on int64 words."""
+    return uniform4_plain(pixel_id, step, stream, seed, dtype)[0]
+
+
 @traced("rng")
 def uniform4(pixel_id: torch.Tensor, step, stream: int, seed: int = 0,
              dtype=torch.float32):
@@ -87,14 +107,18 @@ def uniform4(pixel_id: torch.Tensor, step, stream: int, seed: int = 0,
     ``pixel_id``: integer tensor (the batch); ``step``: int or integer
     tensor broadcastable to it; ``stream``: use-site id; ``seed``: global
     seed in the fourth word."""
-    a, b, c, d = pcg4d(_u32(pixel_id, pixel_id), _u32(step, pixel_id),
-                       _u32(stream, pixel_id), _u32(seed, pixel_id))
-    return tuple(_to_unit_float(v, dtype) for v in (a, b, c, d))
+    if pixel_id.is_cuda:
+        return rng_kernel.draw(pixel_id, step, stream, seed, dtype)
+    return uniform4_plain(pixel_id, step, stream, seed, dtype)
 
 
+@traced("rng")
 def uniform(pixel_id, step, stream, seed=0, dtype=torch.float32):
     """One uniform per counter (the first pcg4d word)."""
-    return uniform4(pixel_id, step, stream, seed, dtype)[0]
+    if pixel_id.is_cuda:
+        return rng_kernel.draw(pixel_id, step, stream, seed, dtype,
+                               rows=1)[0]
+    return uniform_plain(pixel_id, step, stream, seed, dtype)
 
 
 # 4D R2 sequence (Roberts 2018) in uint32 fixed point, Cranley-Patterson
@@ -105,18 +129,26 @@ _R2_A = tuple(int(round(((1.0 / _PHI4) ** (k + 1) % 1.0) * 2.0**32))
 _R2_Y = 0x9E3779B9
 
 
-@traced("rng")
-def r2_uniform4(pixel_id: torch.Tensor, step, stream: int, seed: int = 0,
-                dtype=torch.float32):
-    """The ``step``-th point of the 4D R2 sequence, rotated per pixel:
-    signature-compatible with :func:`uniform4`, stratified across steps of
-    a per-pixel sample counter."""
+def r2_uniform4_plain(pixel_id: torch.Tensor, step, stream: int,
+                      seed: int = 0, dtype=torch.float32):
+    """:func:`r2_uniform4` in plain PyTorch on int64 words."""
     n = _u32(step, pixel_id)
     rot = pcg4d(_u32(pixel_id, pixel_id), _u32(_R2_Y, pixel_id),
                 _u32(stream, pixel_id), _u32(seed, pixel_id))
     return tuple(_to_unit_float((rot[k] + _mul32(n, _R2_A[k])) & _MASK,
                                 dtype)
                  for k in range(4))
+
+
+@traced("rng")
+def r2_uniform4(pixel_id: torch.Tensor, step, stream: int, seed: int = 0,
+                dtype=torch.float32):
+    """The ``step``-th point of the 4D R2 sequence, rotated per pixel:
+    signature-compatible with :func:`uniform4`, stratified across steps of
+    a per-pixel sample counter."""
+    if pixel_id.is_cuda:
+        return rng_kernel.draw(pixel_id, step, stream, seed, dtype, r2=True)
+    return r2_uniform4_plain(pixel_id, step, stream, seed, dtype)
 
 
 def sampler4(low_discrepancy: bool):

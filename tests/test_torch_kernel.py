@@ -11,7 +11,9 @@ equal index where both hit, t within rtol and atol 1e-3 where hit agrees
 save a decision one trip apart and at most one grazing lane in
 10,000), and its MLP alone to 1e-6 of a float64 evaluation. K2's FFMA
 rounds once where the plain version's multiply and add round twice: rtol
-1e-5. K1c and K1d march on a persistent lane pool (``csrc/march_pool.cuh``)
+1e-5. The counter RNG's kernel (``csrc/rng.cu``) is integer arithmetic
+and an exact conversion: bit-equal to the plain draws. K1c and K1d march
+on a persistent lane pool (``csrc/march_pool.cuh``)
 whose lane order follows atomics: their tests cover lane counts around one
 grid's slots, a skewed state, repeat runs, scenes whose bunny is not last or
 that hold two, and K1d's MLP on permuted points. These tests need a CUDA
@@ -27,7 +29,8 @@ import torch
 
 from raytracingpbr_tpu_torch.config import HitCriterion, OmegaPolicy
 from raytracingpbr_tpu_torch.core import rng as trng
-from raytracingpbr_tpu_torch.kernels import fma_kernel, march_kernel
+from raytracingpbr_tpu_torch.kernels import (fma_kernel, march_kernel,
+                                             rng_kernel)
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import camera as tcamera
 from raytracingpbr_tpu_torch.ops import march as tmarch
@@ -1056,3 +1059,91 @@ def test_nccl_world_of_one(cuda_device, tmp_path):
                                    atol=0)
     finally:
         dist.destroy_process_group()
+
+
+# --- the counter RNG kernel (csrc/rng.cu) ------------------------------------
+
+RNG_DRAWS = {"uniform4": (trng.uniform4, trng.uniform4_plain, 4),
+             "uniform": (trng.uniform, trng.uniform_plain, 1),
+             "r2_uniform4": (trng.r2_uniform4, trng.r2_uniform4_plain, 4)}
+RNG_INT_STEPS = {"0": 0, "7": 7, "2**31+5": 2**31 + 5, "2**32-1": 2**32 - 1}
+RNG_STEPS = (*RNG_INT_STEPS, "0-dim card", "lane int32", "lane int64")
+
+
+def _rng_ids(n, dtype, device):
+    """Ids over the whole 32-bit range and past it: int64 ids from -2**33
+    to 2**33 (2**31 and above among them), int32 ids their low 32 bits
+    (negative where the word is 2**31 or above)."""
+    v = np.random.default_rng(n).integers(-2**33, 2**33, n, dtype=np.int64)
+    v[:4] = [0, 2**31, 2**32 - 1, -1][:n]
+    if dtype == torch.int32:
+        v = (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(v).to(device)
+
+
+def _rng_step(form, n, device):
+    rng = np.random.default_rng(n + 1)
+    if form == "0-dim card":
+        return torch.tensor(-2**32 - 5, device=device)
+    if form == "lane int32":
+        return torch.from_numpy(rng.integers(
+            -2**31, 2**31, n, dtype=np.int64).astype(np.int32)).to(device)
+    if form == "lane int64":
+        return torch.from_numpy(rng.integers(
+            -2**40, 2**40, n, dtype=np.int64)).to(device)
+    return RNG_INT_STEPS[form]
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 2_073_600])
+@pytest.mark.parametrize("form", RNG_STEPS)
+@pytest.mark.parametrize("name", sorted(RNG_DRAWS))
+def test_rng_kernel_bit_equal_to_the_plain_draws(cuda_device, name, form,
+                                                 n):
+    """Every draw of the kernel bit-equal to the plain draw on the card:
+    int32 and int64 ids, each form of ``step``, two (stream, seed) pairs,
+    float32 and float64, one launch a draw."""
+    draw, plain, rows = RNG_DRAWS[name]
+    step = _rng_step(form, n, cuda_device)
+    mode = "r2_uniform4" if name == "r2_uniform4" else "uniform4"
+    for pid_dtype in (torch.int32, torch.int64):
+        pid = _rng_ids(n, pid_dtype, cuda_device)
+        for stream, seed in ((0, 0), (2, 1234567)):
+            for dtype in (torch.float32, torch.float64):
+                before = dict(rng_kernel.LAUNCHES)
+                got = draw(pid, step, stream, seed, dtype)
+                assert rng_kernel.LAUNCHES == before | {
+                    mode: before[mode] + 1}
+                ref = plain(pid, step, stream, seed, dtype)
+                got = (got,) if rows == 1 else got
+                ref = (ref,) if rows == 1 else ref
+                assert len(got) == len(ref) == rows
+                for g, r in zip(got, ref):
+                    assert g.dtype == dtype and g.shape == pid.shape
+                    assert torch.equal(g, r), (
+                        f"{int((g != r).sum())} of {n} lanes differ")
+
+
+def test_rng_kernel_draws_without_a_host_sync(cuda_device):
+    """The draws with a step held on the card (the frame counter) or one a
+    lane run under ``set_sync_debug_mode("error")``, each one launch; each
+    output is an allocation of its own of one row's bytes, as the plain
+    draw's are."""
+    pid = torch.arange(1 << 16, dtype=torch.int64, device=cuda_device)
+    steps = (torch.tensor(12, device=cuda_device), pid.to(torch.int32) * 3)
+    trng.uniform4(pid, steps[0], 1)
+    torch.cuda.synchronize()
+    rng_kernel.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in steps:
+            u4 = trng.uniform4(pid, step, 1, 5)
+            u = trng.uniform(pid, step, 0, 5)
+            r2 = trng.r2_uniform4(pid, step, 1, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rng_kernel.LAUNCHES == {"uniform4": 4, "r2_uniform4": 2}
+    assert len(u4) == len(r2) == 4
+    for out in (u4, r2, (u,)):
+        assert len({o.untyped_storage().data_ptr() for o in out}) == len(out)
+        assert all(o.untyped_storage().nbytes() == pid.shape[0] * 4
+                   for o in out)
