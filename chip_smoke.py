@@ -10,7 +10,8 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     CPU fallback).
 1.  build every kernel from ``raytracingpbr_tpu_torch/csrc``, one nvcc per
     source started together (march.cu: K1a, K1b, K1c; march_mxu.cu: K1d;
-    speedlight.cu: K2; rng.cu: the counter RNG), and print what
+    speedlight.cu: K2; rng.cu: the counter RNG; normal.cu: the analytic
+    normal), and print what
     ``-Xptxas -v`` says of each library and the persistent grid of K1c
     and K1d.
 11. the bench, right after the build: ``python3 bench_torch.py`` and
@@ -296,6 +297,14 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     with the plain draws bit-identical in pixels and state; one scan-AD
     step of the Cornell box at 8 bounces with every draw held, its albedo
     gradient within rtol 1e-5 of the plain draws' step.
+13. the analytic normal kernel (``csrc/normal.cu``): alone on the primary
+    hits of tokyo at 2880x1620 (4,665,600 lanes, K1b) and of the Cornell
+    box at 480x480 (230,400, K1a), back to back over four copies of the
+    inputs, against its byte bound, beside ``calc_normal_closed_plain``
+    and autograd's normal, every lane bit-equal to autograd's; one tokyo
+    frame at 2880x1620 and one Cornell frame at 480x480 with the kernel
+    and with autograd's normal in its place, pixels and state
+    bit-identical, the kernel's launches a frame.
 
 The protocols that time frames, passes and steps (3, 3b, 3c, 3f, 3g-3i,
 7b, 7c, 8a-8c, 8f, 9b) are ``raytracingpbr_tpu_torch/bench.py``'s, as are
@@ -314,7 +323,8 @@ each with its 9a phased calls, its 9b phased passes and its launches in
 reprojected engine frame's in 10b; K1a, K1b, K1c and K2 with the bench's
 launches in 11, by source; the RNG kernel with its launches and draws in
 12's frame and step, its times alone against its bound, and the bench's
-launches by source),
+launches by source; the normal kernel with its launches a frame and its
+times alone against its bound, 13),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no jax.
 """
@@ -347,7 +357,7 @@ from raytracingpbr_tpu_torch.io import checkpoint as ckpt
 from raytracingpbr_tpu_torch.io import image as imageio
 from raytracingpbr_tpu_torch.io.image import read_png
 from raytracingpbr_tpu_torch.kernels import (build, fma_kernel, march_kernel,
-                                             rng_kernel)
+                                             normal_kernel, rng_kernel)
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.models.goldens import GOLDENS, render_golden
 from raytracingpbr_tpu_torch.ops import ibl, integrator, march
@@ -460,6 +470,8 @@ BENCH_SHARE = 10
 RNG_LANES = (230_400, 2_073_600)
 RNG_REPS = 100
 HBM_BYTES_PER_S = 3.35e12
+# the normal kernel alone (13): launches timed back to back
+NORMAL_REPS = 100
 
 
 def log(*a):
@@ -510,11 +522,13 @@ def phase_build():
     march_kernel.load("march_mxu")
     fma_kernel.load()
     rng_kernel.load()
+    normal_kernel.load()
     secs = time.perf_counter() - t0
     libs = ", ".join(os.path.relpath(p, REPO) for p in paths.values())
     log(f"[1] built {libs} in {secs:.2f} s (one nvcc per source, in parallel)")
     for name, label in (("march", "K1a-K1c"), ("march_mxu", "K1d"),
-                        ("speedlight", "K2"), ("rng", "the RNG")):
+                        ("speedlight", "K2"), ("rng", "the RNG"),
+                        ("normal", "the normal")):
         log(f"[1] ptxas {label} ({name}.cu): "
             f"{ptxas_summary(build.ptxas_report(name))}")
     for kind in ("k1c", "k1d"):
@@ -4026,6 +4040,113 @@ def phase_rng(dev):
     return out
 
 
+def normal_hits(dev):
+    """The primary hits of the tokyo frame at 2880x1620 (K1b, the full
+    512-trip march) and of the Cornell frame at 480x480 (K1a): {label:
+    (scene, index, position)}, missed lanes included (object 0 at a far
+    point)."""
+    tokyo = bench.k1b_paths(dev)["tokyo 2880x1620"]
+    out = {}
+    for label, (scene, _, cam, cfg) in (
+            ("tokyo 2880x1620", tokyo),
+            ("Cornell 480x480", (cornell.full_scene(dev), None,
+                                 cornell.full_camera(dev),
+                                 cornell.full_config()))):
+        o, d = bench.utilization_rays(cfg, cam)
+        res = march.march(scene, o, d, cfg)
+        out[label] = (scene, res.index, res.position)
+    return out
+
+
+def same_normals(got, want) -> int:
+    """Lanes whose normal differs from ``want``'s in any bit (NaN alike
+    with NaN, a zero's sign counted)."""
+    same = ((got == want) & (torch.signbit(got) == torch.signbit(want))
+            | (torch.isnan(got) & torch.isnan(want)))
+    return int((~same.all(-1)).sum())
+
+
+def normal_alone(dev):
+    """The kernel alone on each frame's primary hits (:func:`normal_hits`):
+    back to back (:func:`device_ms`), each launch on one of four copies of
+    the inputs (above the 50 MB L2 at tokyo's lanes), against its byte
+    bound: the point (12 B) and the index (4 B) read once, the normal (12
+    B) written once, at 3.35 TB/s. ``calc_normal_closed_plain`` and
+    autograd's normal beside it (CUDA events, median); every lane of the
+    kernel's normal against autograd's."""
+    out = {}
+    for label, (scene, idx, p) in normal_hits(dev).items():
+        n = idx.shape[0]
+        got = scenelib.calc_normal(scene, idx, p)
+        autograd = scenelib.calc_normal_autograd(scene, idx, p)
+        differ = same_normals(got, autograd)
+        if differ:
+            raise AssertionError(f"[13] {label}: {differ} of {n} lanes "
+                                 f"differ from autograd's normal")
+        copies = [(idx.clone(), p.clone()) for _ in range(4)]
+        turn = itertools.cycle(copies)
+        ms = device_ms(lambda: scenelib.calc_normal(scene, *next(turn)),
+                       reps=NORMAL_REPS)
+        plain_ms = median_ms(
+            lambda: scenelib.calc_normal_closed_plain(scene, idx, p))
+        autograd_ms = median_ms(
+            lambda: scenelib.calc_normal_autograd(scene, idx, p))
+        nbytes = n * (12 + idx.element_size() + 12)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        key = f"{label} primaries, {n} lanes"
+        out[key] = {"ms": ms, "plain_ms": plain_ms,
+                    "autograd_ms": autograd_ms, "bound_ms": bound,
+                    "bytes_per_lane": nbytes // n, "share": bound / ms}
+        log(f"[13] {key}: kernel {ms:.5f} ms back to back, plain "
+            f"{plain_ms:.4f} ms, autograd {autograd_ms:.4f} ms; bound "
+            f"{bound:.5f} ms ({nbytes // n} B a lane), share "
+            f"{100 * bound / ms:.1f}%; every lane bit-equal to autograd's")
+        del copies, got, autograd
+    return out
+
+
+def phase_normal(dev):
+    """13: the analytic normal kernel. Alone (:func:`normal_alone`). Then
+    one tokyo frame at 2880x1620 (the bench's row, after two frames from a
+    fresh state) and one Cornell frame at 480x480, each with the kernel
+    and, from the same state, with autograd's normal in its place: pixels
+    and state bit-identical. Returns what the kernels line reads."""
+    out = {"alone": normal_alone(dev), "frame_launches": {}}
+    rows = {"tokyo 2880x1620": bench.k1b_paths(dev)["tokyo 2880x1620"],
+            "Cornell 480x480": (cornell.full_scene(dev), cornell.sky(dev),
+                                cornell.full_camera(dev),
+                                cornell.full_config())}
+    kernel = normal_kernel.calc_normal
+    for label, (scene, env, cam, cfg) in rows.items():
+        state = make_frame_state(cfg.num_pixels, device=dev)
+        for _ in range(2):
+            _, state = render_frame(scene, env, cam, state, cfg)
+        normal_kernel.reset_launches()
+        px, st = render_frame(scene, env, cam, state, cfg)
+        torch.cuda.synchronize()
+        out["frame_launches"][label] = normal_kernel.LAUNCHES["normal"]
+        normal_kernel.calc_normal = scenelib.calc_normal_autograd
+        try:
+            px_a, st_a = render_frame(scene, env, cam, state, cfg)
+        finally:
+            normal_kernel.calc_normal = kernel
+        torch.cuda.synchronize()
+        fields = ("accum", "respawn", "hit_t", "march_state", "march_cum")
+        same = [k for k in fields if torch.equal(
+            torch.nan_to_num(getattr(st, k)),
+            torch.nan_to_num(getattr(st_a, k)))]
+        if not torch.equal(px, px_a) or len(same) != len(fields):
+            raise AssertionError(f"[13] {label} frame with autograd's "
+                                 f"normal: pixels equal "
+                                 f"{torch.equal(px, px_a)}, state fields "
+                                 f"equal {same}")
+        log(f"[13] {label} frame: pixels and state bit-identical with "
+            f"autograd's normal; {out['frame_launches'][label]} normal "
+            f"launches a frame")
+        del px, st, px_a, st_a, state
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     dev = phase_device()
@@ -4037,6 +4158,8 @@ def main():
     stamp("the bench (11)")
     drawn = phase_rng(dev)
     stamp("the RNG kernel (12)")
+    normals = phase_normal(dev)
+    stamp("the normal kernel (13)")
     err_2, k2_ms, k2_plain, k2_bound = phase_k2(dev)
     err_a, ka_ms, pa_ms, cornell_state = phase_kernel_vs_plain(dev)
     err_c, kc_ms, pc_ms, glass_state = phase_k1c_vs_plain(dev)
@@ -4328,6 +4451,21 @@ def main():
         "library_ms": None,
         "bench": {src: v["rng"] for src, v in sources.items()
                   if any(v.get("rng", {}).values())}})
+    # the analytic normal (13): no TPU kernel (the JAX package's is
+    # jax.grad)
+    alone = normals["alone"]
+    kernels.append({
+        "name": "normal", "route": "cuda", "source": f"{CSRC}/normal.cu",
+        "replaces": "raytracingpbr_tpu/ops/scene.py calc_normal (jax.grad, "
+                    "no Pallas kernel)",
+        "launches": normals["frame_launches"],
+        "max_abs_err": 0.0, "ms": {k: v["ms"] for k, v in alone.items()},
+        "plain_ms": {k: v["plain_ms"] for k, v in alone.items()},
+        "autograd_ms": {k: v["autograd_ms"] for k, v in alone.items()},
+        "bound_ms": {k: v["bound_ms"] for k, v in alone.items()},
+        "bound_by": "bytes", "share": {k: v["share"]
+                                       for k, v in alone.items()},
+        "library_ms": None})
     log(f"[end] the smoke ran {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

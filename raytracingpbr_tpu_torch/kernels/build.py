@@ -29,8 +29,9 @@ BUILD_DIR = (Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-# march: K1a, K1b, K1c; march_mxu: K1d; speedlight: K2; rng: the counter RNG
-SOURCES = ("march", "march_mxu", "speedlight", "rng")
+# march: K1a, K1b, K1c; march_mxu: K1d; speedlight: K2; rng: the counter RNG;
+# normal: the analytic surface normal
+SOURCES = ("march", "march_mxu", "speedlight", "rng", "normal")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from ..core.device import resolve
-from ..core.math import rotate_euler
+from ..core.math import rotate_euler, safe_norm
+from ..kernels import normal_kernel
 from . import sdf as sdflib
 from .sdf import SHAPE, BunnyMLP
 
@@ -356,21 +357,45 @@ def materials_at(scene: Scene, idx: torch.Tensor) -> Materials:
                      m[..., 8], m[..., 9])
 
 
+# calc_normal's calls by route: the CUDA kernel (csrc/normal.cu), or
+# autograd's first- or second-order gradient
+NORMAL_ROUTES = {"kernel": 0, "autograd_first_order": 0,
+                 "autograd_second_order": 0}
+
+
 def calc_normal(scene: Scene, idx: torch.Tensor,
                 p: torch.Tensor) -> torch.Tensor:
     """Analytic surface normal: normalized gradient of ``sd_object`` with
-    respect to ``p``, through autograd.
+    respect to ``p``.
 
     Where autograd records (grad mode on, and ``p`` or a buffer the SDF
-    reads requires grad) the gradient is taken with ``create_graph=True``
-    at the attached ``p``, so the normal is differentiable in ``p`` and in
-    the geometry, as ``jax.grad``'s normal is (second order through the
-    SDF). Otherwise ``p`` is detached and the gradient is first order: the
-    forward render's numbers."""
+    reads requires grad) it is :func:`calc_normal_autograd`'s second-order
+    normal, differentiable in ``p`` and in the geometry as ``jax.grad``'s
+    normal is. Otherwise it is first order, the forward render's numbers:
+    on float32 CUDA points of a scene without a BUNNY one launch of the
+    normal kernel (``kernels/normal_kernel``, bit-equal to autograd's),
+    else autograd's first-order normal."""
     sdf_reads = (scene.position, scene.scale, scene.matrix,
                  scene.local_offset) + tuple(scene.bunny or ())
     if torch.is_grad_enabled() and (
             p.requires_grad or any(t.requires_grad for t in sdf_reads)):
+        NORMAL_ROUTES["autograd_second_order"] += 1
+        return calc_normal_autograd(scene, idx, p, create_graph=True)
+    if p.is_cuda and p.dtype == torch.float32 and not scene.has_bunny:
+        NORMAL_ROUTES["kernel"] += 1
+        return normal_kernel.calc_normal(scene, idx, p.detach())
+    NORMAL_ROUTES["autograd_first_order"] += 1
+    return calc_normal_autograd(scene, idx, p)
+
+
+def calc_normal_autograd(scene: Scene, idx: torch.Tensor, p: torch.Tensor,
+                         create_graph: bool = False) -> torch.Tensor:
+    """The normal through autograd over every object's distance.
+    ``create_graph``: the gradient at the attached ``p`` (a detached copy
+    where ``p`` needs no grad) with its graph, so the normal is
+    differentiable (second order through the SDF); else first order at a
+    detached ``p``."""
+    if create_graph:
         q = p if p.requires_grad else p.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(sd_object(scene, idx, q).sum(), q,
                                    create_graph=True)
@@ -379,6 +404,121 @@ def calc_normal(scene: Scene, idx: torch.Tensor,
             q = p.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(sd_object(scene, idx, q).sum(), q)
     return g / torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+
+
+def _safe_norm_grad(v, u):
+    """The gradient of ``core/math.safe_norm`` over the components ``v``
+    under the upstream ``u``, as autograd computes it: ``sqrt``'s
+    ``u / (2 * result)`` behind both ``where`` guards (0 at ``v = 0``),
+    and ``v * v``'s two equal terms ``gsq * v + gsq * v``."""
+    sq = v[0] * v[0]
+    for c in v[1:]:
+        sq = sq + c * c
+    pos = sq > 0
+    safe = torch.sqrt(torch.where(pos, sq, 1.0))
+    gsq = torch.where(pos, u / (2 * safe), 0.0)
+    return [gsq * c + gsq * c for c in v]
+
+
+def _max0_grad(x, g):
+    """``torch.maximum(x, 0)``'s gradient to ``x`` under ``g``: ``g``
+    above 0, half of it at the tie, 0 below (NaN passes ``g`` on)."""
+    return torch.where(x < 0, 0.0, torch.where(x == 0, g / 2, g))
+
+
+def _min_amax0_grad(q):
+    """The gradient of ``torch.minimum(torch.amax(q), 0)`` over the
+    components ``q`` under an upstream 1: ``minimum``'s 1, 0.5 at the tie
+    or 0, split by ``amax`` evenly over the entries equal to the
+    maximum."""
+    inner = torch.amax(torch.stack(q, -1), dim=-1)
+    gi = torch.where(inner > 0, 0.0, torch.where(inner == 0, 0.5, 1.0))
+    ties = [(c == inner).to(inner.dtype) for c in q]
+    cnt = ties[0]
+    for t in ties[1:]:
+        cnt = cnt + t
+    return [(gi / cnt) * t for t in ties]
+
+
+def _grad_box_like(d):
+    """``min(amax(d), 0) + safe_norm(max(d, 0))``'s gradient to ``d``
+    (``sd_round_box`` and ``sd_cylinder`` both end so)."""
+    outside = _safe_norm_grad([torch.maximum(c, torch.zeros_like(c))
+                               for c in d], torch.ones_like(d[0]))
+    inside = _min_amax0_grad(d)
+    return [_max0_grad(c, o) + i for c, o, i in zip(d, outside, inside)]
+
+
+def _grad_box(x, y, z, s):
+    p = (x, y, z)
+    gq = _grad_box_like([torch.abs(c) - s[:, k] for k, c in enumerate(p)])
+    return [g * torch.sign(c) for g, c in zip(gq, p)]
+
+
+def _grad_cylinder(x, y, z, s):
+    dxz = safe_norm(torch.stack([x, z], -1))
+    gd = _grad_box_like([torch.abs(dxz) - s[:, 0], torch.abs(y) - s[:, 1]])
+    gx, gz = _safe_norm_grad([x, z], gd[0] * torch.sign(dxz))
+    return [gx, gd[1] * torch.sign(y), gz]
+
+
+def _grad_cone(x, y, z, s):
+    d = s[:, 0] * safe_norm(torch.stack([x, z], -1)) + s[:, 2] * y
+    e = -s[:, 1] - y
+    tie = torch.where(d == e, 0.5, 1.0)
+    gd = torch.where(d < e, 0.0, tie)
+    ge = torch.where(d > e, 0.0, tie)
+    gx, gz = _safe_norm_grad([x, z], gd * s[:, 0])
+    return [gx, gd * s[:, 2] + -ge, gz]
+
+
+def calc_normal_closed_plain(scene: Scene, idx: torch.Tensor,
+                             p: torch.Tensor) -> torch.Tensor:
+    """``calc_normal``'s first-order normal in closed form: the lane's own
+    object alone, its SDF's gradient written out as autograd's backward
+    computes it, operation for operation (``csrc/normal.cu`` runs the
+    same arithmetic, a thread a lane). Bit-equal to ``calc_normal`` on the
+    analytic shapes (no BUNNY).
+
+    Autograd's order, where it decides the bits: ``abs`` passes
+    ``g * sign(p)``; ``maximum``/``minimum`` give half the gradient to
+    each side at a tie and ``amax`` splits it evenly over tied entries;
+    ``safe_norm``'s square sums two equal terms; the rotation's transpose
+    accumulates rows 2, 1, 0 into each world component, and every other
+    object's gradient is +0, so an exact zero is +0; at a point not finite
+    another curved object's is NaN. The normalisation is
+    ``torch.linalg.vector_norm``'s (the kernel follows the card's
+    reduction order)."""
+    shape = p.shape
+    i = idx.reshape(-1).to(torch.int64)
+    pf = p.reshape(-1, 3)
+    m = scene.matrix.index_select(0, i)
+    pl = sdflib.to_object_space(pf, scene.position.index_select(0, i), m,
+                                scene.local_offset.index_select(0, i))
+    s = scene.scale.index_select(0, i)
+    t = scene.type_ids.index_select(0, i)
+    x, y, z = pl.unbind(-1)
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    g = [zero, zero, zero]
+    for shape_id, grads in (
+            (SHAPE.SPHERE, lambda: _safe_norm_grad([x, y, z], one)),
+            (SHAPE.BOX, lambda: _grad_box(x, y, z, s)),
+            (SHAPE.CYLINDER, lambda: _grad_cylinder(x, y, z, s)),
+            (SHAPE.CONE, lambda: _grad_cone(x, y, z, s)),
+            (SHAPE.PLANE, lambda: [zero, one, zero])):
+        if shape_id in scene.shape_types:
+            sel = t == int(shape_id)
+            g = [torch.where(sel, a, b) for a, b in zip(grads(), g)]
+    world = [((g[2] * m[:, 2, c] + g[1] * m[:, 1, c]) + g[0] * m[:, 0, c])
+             + 0.0 for c in range(3)]
+    n = torch.stack(world, -1)
+    curved = ((t >= int(SHAPE.SPHERE)) & (t <= int(SHAPE.CONE))).to(t.dtype)
+    lost = ~torch.isfinite(pf).all(-1) & (
+        normal_kernel.num_curved(scene) > curved)
+    n = torch.where(lost[:, None], torch.nan, n)
+    n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    return n.reshape(shape)
 
 
 def calc_normal_tetrahedron(scene: Scene, idx: torch.Tensor,

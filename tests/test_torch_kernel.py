@@ -12,7 +12,11 @@ save a decision one trip apart and at most one grazing lane in
 10,000), and its MLP alone to 1e-6 of a float64 evaluation. K2's FFMA
 rounds once where the plain version's multiply and add round twice: rtol
 1e-5. The counter RNG's kernel (``csrc/rng.cu``) is integer arithmetic
-and an exact conversion: bit-equal to the plain draws. K1c and K1d march
+and an exact conversion: bit-equal to the plain draws. The analytic
+normal's kernel (``csrc/normal.cu``) follows autograd's backward
+operation for operation: bit-equal to autograd's first-order normal,
+zeros' signs included, and frames through it to frames through
+autograd's. K1c and K1d march
 on a persistent lane pool (``csrc/march_pool.cuh``)
 whose lane order follows atomics: their tests cover lane counts around one
 grid's slots, a skewed state, repeat runs, scenes whose bunny is not last or
@@ -30,7 +34,7 @@ import torch
 from raytracingpbr_tpu_torch.config import HitCriterion, OmegaPolicy
 from raytracingpbr_tpu_torch.core import rng as trng
 from raytracingpbr_tpu_torch.kernels import (fma_kernel, march_kernel,
-                                             rng_kernel)
+                                             normal_kernel, rng_kernel)
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import camera as tcamera
 from raytracingpbr_tpu_torch.ops import march as tmarch
@@ -41,9 +45,11 @@ from raytracingpbr_tpu_torch.ops.scene import (_BUFFERS, ObjectSpec, Scene,
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE, BunnyMLP, bunny_mlp_eval
 from raytracingpbr_tpu_torch.utils import speedlight
 
-from .torch_helpers import (bunny_beside_shapes,  # noqa: F401
+from .torch_helpers import (NORMAL_POSES,  # noqa: F401
+                            assert_normals_bit_equal, bunny_beside_shapes,
                             cuda_device, many_objects_scene,
-                            mixed_analytic_scene, random_rays)
+                            mixed_analytic_scene, normal_points,
+                            normal_scene, random_rays)
 
 pytestmark = pytest.mark.cuda
 
@@ -1147,3 +1153,112 @@ def test_rng_kernel_draws_without_a_host_sync(cuda_device):
         assert len({o.untyped_storage().data_ptr() for o in out}) == len(out)
         assert all(o.untyped_storage().nbytes() == pid.shape[0] * 4
                    for o in out)
+
+
+# --- the analytic normal kernel (csrc/normal.cu) -----------------------------
+
+NORMAL_SCENES = {"cornell": cornell.full_scene, "tokyo": demo.scene_demo_scene,
+                 "engine": demo.engine_scene, "mixed": mixed_analytic_scene}
+
+
+def _normal_both(scene, idx, p):
+    """The kernel through ``calc_normal`` (one launch, the kernel route)
+    and autograd's first-order normal on the same lanes."""
+    before = dict(normal_kernel.LAUNCHES)
+    routes = dict(scenelib.NORMAL_ROUTES)
+    got = scenelib.calc_normal(scene, idx, p)
+    assert normal_kernel.LAUNCHES == {"normal": before["normal"] + 1}
+    assert scenelib.NORMAL_ROUTES == routes | {"kernel": routes["kernel"] + 1}
+    return got, scenelib.calc_normal_autograd(scene, idx, p)
+
+
+@pytest.mark.parametrize("box_round", [0.03, 0.0], ids=["round", "sharp"])
+@pytest.mark.parametrize("pose", sorted(NORMAL_POSES))
+def test_normal_kernel_bit_equal_to_autograd(cuda_device, pose, box_round):
+    """Every analytic shape in every pose, rounded and sharp boxes, at
+    about 1 M lanes: the lattice of faces, edges, corners, rims, axes and
+    centres, random points, missed lanes at far points and NaN points,
+    int32 and int64 indices: bit for bit, zeros' signs too."""
+    scene = normal_scene(pose, box_round, cuda_device)
+    idx, p = normal_points(scene, 1 << 20, seed=len(pose))
+    idx, p = idx.to(cuda_device), p.to(cuda_device)
+    for ids in (idx, idx.to(torch.int64)):
+        assert_normals_bit_equal(*_normal_both(scene, ids, p))
+
+
+@pytest.mark.parametrize("name", sorted(NORMAL_SCENES))
+def test_normal_kernel_on_hit_points(cuda_device, name):
+    """The model scenes' primary hits through the march (missed lanes
+    included, object 0 at a far point) and points about their objects,
+    on a strided ``p`` of two batch axes."""
+    scene = NORMAL_SCENES[name](cuda_device)
+    cfg = cornell.full_config().replace(resolution=(256, 256))
+    o, d = primaries(cfg, cuda_device)
+    if name != "cornell":
+        o = o + torch.tensor([0.0, -0.2, 4.5], device=cuda_device)
+    res = tmarch.march(scene, o, d, cfg.replace(max_raymarch=256))
+    assert_normals_bit_equal(*_normal_both(scene, res.index, res.position))
+    idx, p = normal_points(scene, 1 << 18, seed=11)
+    n = idx.shape[0] // 2 * 2
+    pw = torch.zeros((n, 4), device=cuda_device)
+    pw[:, :3] = p[:n].to(cuda_device)
+    ps = pw[:, :3].reshape(2, -1, 3)  # not contiguous
+    assert_normals_bit_equal(*_normal_both(
+        scene, idx[:n].to(cuda_device).reshape(2, -1), ps))
+
+
+def test_normal_kernel_without_a_host_sync(cuda_device):
+    """``calc_normal`` on the kernel route runs under
+    ``set_sync_debug_mode("error")`` on an animated scene (``animate``'s
+    offset a broadcast view read in place), one launch a call."""
+    scene = scenelib.animate(normal_scene("general", 0.03, cuda_device),
+                             torch.tensor(12, device=cuda_device))
+    idx, p = normal_points(scene, 1 << 16, seed=2)
+    idx, p = idx.to(cuda_device), p.to(cuda_device)
+    scenelib.calc_normal(scene, idx, p)
+    torch.cuda.synchronize()
+    normal_kernel.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [scenelib.calc_normal(scene, idx, p) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert normal_kernel.LAUNCHES == {"normal": 3}
+    want = scenelib.calc_normal_autograd(scene, idx, p)
+    for got in outs:
+        assert_normals_bit_equal(got, want)
+
+
+def _frames_state(scene, env, cam, cfg, frames, device):
+    from raytracingpbr_tpu_torch.core.types import make_frame_state
+    from raytracingpbr_tpu_torch.ops.integrator import render_frame
+    state = make_frame_state(cfg.num_pixels, device)
+    for _ in range(frames):
+        px, state = render_frame(scene, env, cam, state, cfg)
+    r = state.rays
+    return (px, state.accum, r.origin, r.direction, r.color, r.depth,
+            state.hit_t)
+
+
+@pytest.mark.parametrize("name", ["tokyo", "cornell"])
+def test_frames_through_the_normal_kernel_bit_equal(cuda_device, name,
+                                                    monkeypatch):
+    """Three wavefront frames with the normal kernel and with autograd's
+    normal in its place: every pixel, accumulator and ray bit for bit."""
+    if name == "tokyo":
+        scene, env = (demo.scene_demo_scene(cuda_device),
+                      demo.tokyo_environment(device=cuda_device))
+        cfg = demo.tokyo_config().replace(resolution=(320, 180))
+        cam = demo.engine_camera(cuda_device)
+    else:
+        scene, env = cornell.full_scene(cuda_device), cornell.sky(cuda_device)
+        cfg = cornell.full_config().replace(resolution=(160, 160))
+        cam = cornell.full_camera(cuda_device)
+    normal_kernel.reset_launches()
+    got = _frames_state(scene, env, cam, cfg, 3, cuda_device)
+    assert normal_kernel.LAUNCHES["normal"] > 0
+    monkeypatch.setattr(normal_kernel, "calc_normal",
+                        scenelib.calc_normal_autograd)
+    want = _frames_state(scene, env, cam, cfg, 3, cuda_device)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))

@@ -128,3 +128,114 @@ def golden_psnr(name: str) -> float:
     got = (np.clip(nn(img), 0, 1) * 255 + 0.5).astype(np.uint8)
     assert got.shape == gold.shape
     return psnr(got, gold)
+
+
+# --- the analytic normal's cases (calc_normal_closed_plain, the kernel) ----
+
+# object poses: Euler degrees, or "animated" (the general pose, then
+# ``scene.animate``: a turned matrix and a non-zero ``local_offset``)
+NORMAL_POSES = {"identity": (0, 0, 0), "permutation": (90, 0, 180),
+                "turned": (0, -90, 90), "cornell": (0, -253, 0),
+                "general": (17, -197, 35), "animated": (17, -197, 35)}
+
+
+def _normal_lattice(shape, s):
+    """Local points of one object where the gradient's ties and zeros
+    lie, exact in float32 (dyadic scales): a box's faces, edges and
+    corners on, inside and outside its surface (``amax`` ties, ``|p| = 0``
+    planes); a cylinder's rim, wall, caps and axis; a cone's apex, axis
+    and the point where its two planes tie; a sphere's centre (the
+    ``safe_norm`` at 0) and axes."""
+    from raytracingpbr_tpu_torch.ops.sdf import SHAPE as S
+    t = np.array([-0.125, 0.0, 0.0625])
+    sign = np.array([-1.0, 1.0])
+    pts = []
+    if shape == S.BOX:
+        c = np.array([-1.5, -1.0, -0.5, 0.0, 0.5, 1.0, 1.5])
+        pts += [np.array(v) * s for v in np.stack(np.meshgrid(
+            c, c, c, indexing="ij"), -1).reshape(-1, 3)]
+        for dt in t:
+            for sx in sign:
+                for sy in sign:
+                    for sz in sign:
+                        f = np.array([sx, sy, sz])
+                        pts.append(f * (s + dt))  # 3-way ties
+                        pts.append(f * (s + [dt, dt, -0.25]))  # 2-way
+    elif shape == S.CYLINDER:
+        r, h = s[0], s[1]
+        for dr in (-r, *t, 0.5):
+            for dy in (-h, *t, 0.5):
+                for sx in sign:
+                    for sy in sign:
+                        pts.append([sx * (r + dr), sy * (h + dy), 0.0])
+                        pts.append([0.0, sy * (h + dy), sx * (r + dr)])
+        pts += [[0.0, y, 0.0] for y in (-0.5, 0.0, 0.125, h, 0.5)]
+    elif shape == S.CONE:
+        # s = (0.5, 0.5, 1.0): on the axis the planes tie at y = -0.25
+        pts += [[0.0, y, 0.0] for y in (-0.5, -0.25, 0.0, 0.25)]
+        pts += [[x, -0.25, z] for x in (-0.5, 0.0, 0.5)
+                for z in (-0.25, 0.0, 0.25)]
+    elif shape == S.SPHERE:
+        pts += [[0.0, 0.0, 0.0]] + [list(v * s[0] * k) for v in np.eye(3)
+                                    for k in (-1.5, 1.0, 0.5)]
+    return np.array(pts, dtype=np.float64).reshape(-1, 3)
+
+
+def normal_scene(pose: str, box_round: float, device):
+    """Every analytic shape (NONE first, two boxes) in one pose, for the
+    analytic normal: each object is a shape bucket's own or one of two,
+    and every other object's gradient flows beside the lane's own."""
+    from raytracingpbr_tpu_torch.ops.scene import (ObjectSpec, animate,
+                                                    make_scene)
+    from raytracingpbr_tpu_torch.ops.sdf import SHAPE as S
+    rot = NORMAL_POSES[pose]
+    scene = make_scene([
+        ObjectSpec(S.NONE),
+        ObjectSpec(S.SPHERE, (0.5, 0.25, 0.0), rot, (0.375,) * 3),
+        ObjectSpec(S.BOX, (-0.5, 0.0, 0.25), rot, (0.5, 0.25, 0.375)),
+        ObjectSpec(S.BOX, (0.0, 0.5, -0.5), rot, (0.25, 0.125, 0.25)),
+        ObjectSpec(S.CYLINDER, (0.25, -0.5, 0.5), rot, (0.5, 0.25, 0.5)),
+        ObjectSpec(S.CONE, (-0.25, 0.75, 0.0), rot, (0.5, 0.5, 1.0)),
+        ObjectSpec(S.PLANE, (0.0, -1.0, 0.0), rot, (1.0, 0.25, 1.0)),
+    ], box_round=box_round, device=device)
+    return animate(scene, 37) if pose == "animated" else scene
+
+
+def normal_points(scene, n_random: int, seed: int = 0):
+    """(idx int32, p float32) CPU tensors for the analytic normal: each
+    object's :func:`_normal_lattice` taken to the world frame (exact under
+    the identity and signed permutations), ``n_random`` lanes of random
+    objects at points about them, missed lanes (far points, ``MAX_DIS``
+    away) of every object, and two NaN points."""
+    rng = np.random.default_rng(seed)
+    pos = scene.position.double().cpu().numpy()
+    mat = scene.matrix.double().cpu().numpy()
+    off = scene.local_offset.double().cpu().numpy()
+    scale = scene.scale.double().cpu().numpy()
+    idx, pts = [], []
+    for i, shape in enumerate(scene.shape_types):
+        local = _normal_lattice(shape, scale[i])
+        idx += [i] * len(local)
+        pts.append(pos[i] + (local - off[i]) @ mat[i])
+    k = rng.integers(0, scene.num_objects, n_random)
+    idx += list(k)
+    pts.append(pos[k] + rng.normal(0, 0.6, (n_random, 3)))
+    far = rng.normal(size=(scene.num_objects, 3))
+    far *= 1e3 / np.linalg.norm(far, axis=-1, keepdims=True)
+    idx += list(range(scene.num_objects)) + [0, scene.num_objects - 1]
+    pts += [far, np.full((2, 3), np.nan)]
+    return (torch.as_tensor(np.array(idx), dtype=torch.int32),
+            torch.as_tensor(np.concatenate(pts).astype(np.float32)))
+
+
+def assert_normals_bit_equal(got: torch.Tensor, want: torch.Tensor):
+    """Every lane's three components bit for bit: the same float or both
+    NaN, and the same sign (a zero's too)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = torch.isnan(want)
+    same = ((got == want) & (torch.signbit(got) == torch.signbit(want))
+            | (nan & torch.isnan(got)))
+    bad = ~same.all(-1)
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} lanes differ; first "
+        f"{torch.nonzero(bad)[:4, 0].tolist()}")

@@ -19,7 +19,10 @@ of the ``frame`` spans, the ``sync`` spans a step and their host time,
 the idle gaps named by layer, and the benchmark's own per-layer readings
 beside them. Each pair also says whether both halves launched the same
 kernels in the same order, and the recorder's cost: the host time a unit
-with the spans on over that with them off.
+with the spans on over that with them off. Each sub-window also counts
+``ops/scene.calc_normal``'s calls a unit by route (``NORMAL_ROUTES``) and
+the normal kernel's launches a unit (``kernels/normal_kernel.LAUNCHES``),
+which show where the analytic normal kernel engages.
 
 One JSON line a sub-window and a last summary line on stdout; the whole
 record in ``--out``/``<workload>.json``. Prints the card's name and power
@@ -43,6 +46,8 @@ import torch
 from benchmark import harness, program
 from benchmark import trace as tracelib
 from benchmark.metrics import layers
+from raytracingpbr_tpu_torch.kernels import normal_kernel
+from raytracingpbr_tpu_torch.ops import scene as scenelib
 from raytracingpbr_tpu_torch.utils import profiling
 
 READERS = {"frames": ("launches.frame", "other_device_ms.frame",
@@ -93,6 +98,8 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
     JSON), for reading again without a card."""
     captured = {}
     spans.rows = []
+    routes = dict(scenelib.NORMAL_ROUTES)
+    launched = normal_kernel.LAUNCHES["normal"]
     rec = profiling.recording() if record else contextlib.nullcontext([])
     with rec as rows, profiled(captured):
         spans.on = True
@@ -100,7 +107,13 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
             kind.unit(ctx, i, True)
         spans.on = False
     tr = tracelib.build(ctx.cell.kind, n, captured, spans, [])
-    got = {"record": record, "host_ms_a_unit":
+    got = {"record": record,
+           "normal_routes_a_unit": {
+               k: (v - routes[k]) / n
+               for k, v in scenelib.NORMAL_ROUTES.items()},
+           "normal_launches_a_unit":
+               (normal_kernel.LAUNCHES["normal"] - launched) / n,
+           "host_ms_a_unit":
            (captured["t1"] - captured["t0"]) * 1e3 / n,
            "offset_vs_first_sync_us": captured["offset_us"]
            - captured["first_sync_offset_us"],
