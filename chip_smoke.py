@@ -209,24 +209,6 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     and every march call of the step after them held, as made, against
     the plain march on the updated scene (the pack-cache check).
 
-9a. the phased march (``march.march_phased``, ``cfg.march_compaction``)
-    against the single call on the frames' own calls: the Cornell
-    megakernel's bounce 0 (480x480, 512 trips in 5 phases, K1a, recorded
-    in 3g), the engine and tokyo primaries over 512 trips (K1b), the glass
-    megakernel's bounces 0 and 1 (1920x1080, 2048 trips in 7 phases,
-    recorded in 3i) with K1c and K1d, whole and on every 8th lane. On each:
-    one launch a phase, the eight outputs bit-equal to the single call
-    (K1d held to the march bar, and said whether bit-equal); ms a call
-    each way in turns and back to back; lane-trips needed and executed
-    each way; host syncs a phased call (``set_sync_debug_mode``); the
-    bound and its share (the glass calls on their every-8th-lane subset,
-    whose MLP support 3j counted).
-9b. the megakernel passes with ``march_compaction`` off and on in turns
-    off, on, on, off on ``bench.py``'s protocol: glass 1920x1080 with K1c,
-    then K1d (7 launches a bounce phased), Cornell full 480x480 (5):
-    ms/pass, Msamples/s, bounces, host syncs a phased pass; the image at
-    sample 0 bit-identical each way (K1d: >= 35 dB, and said whether
-    bit-identical).
 9c. adaptive frame compaction: the Cornell main path at 480x480 with
     ``adaptive_sampling`` at the noise threshold ADAPTIVE_THRESHOLD,
     ADAPTIVE_FRAMES frames through ``render_frame_tile`` compacted every
@@ -307,7 +289,7 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     bit-identical, the kernel's launches a frame.
 
 The protocols that time frames, passes and steps (3, 3b, 3c, 3f, 3g-3i,
-7b, 7c, 8a-8c, 8f, 9b) are ``raytracingpbr_tpu_torch/bench.py``'s, as are
+7b, 7c, 8a-8c, 8f) are ``raytracingpbr_tpu_torch/bench.py``'s, as are
 the workload rows' configurations. Each path's launch counts are set to 0
 just before it and read just after.
 The last lines are the kernels' JSON record (K1a and K1b with their mean
@@ -318,8 +300,8 @@ K1b, K1c and K1d with their 7d shadow calls' time, bound, share and
 launches; K1a and K1b with their launches a step on the gradient paths; K1c and
 K1d with their launches a bunny scan-AD step (8f) and K1c a bunny train
 step (8g), and the 8f step's calls' time, bound and share;
-each with its 9a phased calls, its 9b phased passes and its launches in
-9c-9d; K1a with its sharded paths' launches in 10a-10e, K1b with the
+K1a with its launches a frame in 9c, K1b with its launches a frame in
+9d; K1a with its sharded paths' launches in 10a-10e, K1b with the
 reprojected engine frame's in 10b; K1a, K1b, K1c and K2 with the bench's
 launches in 11, by source; the RNG kernel with its launches and draws in
 12's frame and step, its times alone against its bound, and the bench's
@@ -435,12 +417,10 @@ BUNNY_BIAS_SHIFT = 0.01
 BUNNY_RECOVERY_SPP = 8
 BUNNY_TARGET_SPP = 256
 BUNNY_LOSS_DROP = 2.0
-# compaction and reprojection (9a-9e): the phased and single calls' timed
-# calls each way; the adaptive frames, compacted every ADAPTIVE_EVERY at
+# compaction and reprojection (9c-9e): the adaptive frames, compacted every ADAPTIVE_EVERY at
 # the noise threshold (about 90% of the Cornell pixels fall below it by
 # the sixth frame, so later compactions move lanes); the interactive
 # app's script (moves and rotations); the preview daemon's run
-PHASED_REPS = 10
 ADAPTIVE_FRAMES = 16
 ADAPTIVE_EVERY = 4
 ADAPTIVE_THRESHOLD = 0.15
@@ -1144,7 +1124,7 @@ def pooled_calls(sets, tag="[3e]", names=None):
     out = {}
     for label, scene, calls, mxu in sets:
         tot = dict(ms=0.0, bound_ms=0.0, needed=0, slots=0, support=0,
-                   mlp=0, warp_mlp=0, err=0.0, supports=[])
+                   mlp=0, warp_mlp=0, err=0.0)
         for j, (o, d, act, init, c) in enumerate(calls):
             cfg = c.replace(bunny_mxu=mxu)
             kind = march_kernel.variant(scene, cfg)
@@ -1162,7 +1142,6 @@ def pooled_calls(sets, tag="[3e]", names=None):
             support, warp_mlp = speedlight.support_lane_trips(
                 scene, o, d, cfg, act, init)
             work = speedlight.mlp_work(support, mlp)
-            tot["supports"].append(support)
             b = speedlight.march_bound(scene, cfg, k.fin, support, act, init)
             needed = b["lane_iters_needed"]
             log(f"{tag} {label} call {j if names is None else names[j]}: "
@@ -1297,7 +1276,7 @@ def host_syncs(fn):
 
 
 def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
-                      warm=True, per_bounce=1, **kw):
+                      warm=True, **kw):
     """``bench.megakernel``'s protocol (``bench.py:88-108``):
     ``render_image(spp=1, tonemapped=False)`` at sample_offset ``first -
     1`` as warm-up (unless ``warm`` is False), then ``passes`` timed passes
@@ -1305,9 +1284,7 @@ def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
     Only ``kind``'s march kernel may launch, one launch a bounce (``kind``
     may be a tuple: the bounce's kernel first, then the shadow rays', each
     of which must launch); the shadow rays' launches are the escape-bound
-    ones, which run exactly when ``cfg.env_sampling`` is on.
-    ``per_bounce``: the bounce kernel's launches a bounce (the phases of a
-    phased march; they must divide its launches). Returns ms/pass,
+    ones, which run exactly when ``cfg.env_sampling`` is on. Returns ms/pass,
     Msamples/s, bounces the loop ran a pass, the launches, shadow launches
     a pass, peak GiB and the last image."""
     kinds = (kind,) if isinstance(kind, str) else tuple(kind)
@@ -1321,14 +1298,11 @@ def megakernel_passes(label, scene, env, cam, cfg, kind, passes, first=1,
                              f"env_sampling={cfg.env_sampling}")
     if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0):
         raise AssertionError(f"{label}: the image is not finite and positive")
-    # a bounce launches kinds[0] per_bounce times; the shadow rays'
-    # launches are the escape-bound ones
+    # a bounce launches kinds[0] once; the shadow rays' launches are the
+    # escape-bound ones
     bounce_launches = launches[kinds[0]] - bound[kinds[0]]
-    if bounce_launches % per_bounce:
-        raise AssertionError(f"{label}: {bounce_launches} bounce launches, "
-                             f"not a multiple of {per_bounce} a bounce")
     out = dict(ms=r["ms"], msps=r["msps"],
-               bounces=bounce_launches / per_bounce / passes,
+               bounces=bounce_launches / passes,
                launches=launches[kinds[0]],
                all_launches={k: launches[k] for k in kinds},
                shadow_per_pass=shadow / passes, mem=r["mem_gib"], img=img)
@@ -2718,192 +2692,6 @@ def to_cpu(x):
                       else v.cpu() for k, v in vars(x).items()})
 
 
-def phased_call(label, scene, o, d, act, cfg, support=None):
-    """9a: one march call over its whole budget, through the phased march
-    (``march.march_phased``) and the single-shot kernel. The phased march
-    launches once a phase and makes no host sync; its eight outputs equal
-    the single call's bit for bit (K1d: held to the march bar, and said
-    whether bit-equal). Both timed in turns (a call, CUDA events) and back
-    to back behind a sleep; lane-trips executed each way
-    (``speedlight.phased_executed`` against warps of 32 fixed lanes for
-    K1a/K1b, the kernel's counts summed over the phases for K1c/K1d); with
-    ``support`` (0 for the analytic kernels), the bound and its share."""
-    phases = march.resolve_phases(cfg)
-    kind = march_kernel.variant(scene, cfg)
-    single = lambda: march_kernel.march_resumable_cuda(scene, o, d, cfg,
-                                                       active=act)
-    phased = lambda: march.march_phased(scene, o, d, cfg, active=act)
-    march_kernel.reset_launches()
-    p = phased()
-    torch.cuda.synchronize()
-    launches = dict(march_kernel.LAUNCHES)
-    if launches[kind] != len(phases) or sum(launches.values()) != len(
-            phases):
-        raise AssertionError(f"[9a] {label}: {launches} launches for "
-                             f"{len(phases)} phases of {kind}")
-    s = march.ResumableResult(*single())
-    differ = [n for n, a, b in zip(FIELDS, p, s) if not torch.equal(a, b)]
-    err = 0.0
-    if kind == "k1d":
-        err = march.assert_march_close(scene, o, d, p, s, cfg)[0]
-        note = ("bit-equal" if not differ else
-                f"within the march bar, not bit-equal ({differ})")
-    elif differ:
-        raise AssertionError(f"[9a] {label}: the phased march differs from "
-                             f"the single call in {differ}")
-    else:
-        note = "bit-equal"
-    ms_p, ms_s, turns = in_turns(phased, single, PHASED_REPS, PHASED_REPS)
-    dev_p = device_ms(phased, PHASED_REPS)
-    dev_s = device_ms(single, PHASED_REPS)
-    syncs = host_syncs(phased)
-    needed = int(s.fin.to(torch.int64).sum())
-    if kind in ("k1c", "k1d"):
-        ex_s = speedlight.executed_counts(scene, o, d, cfg, act)[0]
-        ex_p = speedlight.executed_counts(
-            scene, o, d, cfg.replace(march_compaction=True), act)[0]
-    else:
-        ex_s = speedlight.warp_executed(s.fin)
-        ex_p = speedlight.phased_executed(s.fin, phases)
-    out = dict(ms_phased=ms_p, ms_single=ms_s, device_ms_phased=dev_p,
-               device_ms_single=dev_s, executed_phased=ex_p,
-               executed_single=ex_s, needed=needed, syncs=syncs or 0,
-               bit_equal=not differ, err=err, launches=launches[kind],
-               lanes=o.shape[0],
-               active=o.shape[0] if act is None else int(act.sum()))
-    tail = ""
-    if support is not None:
-        b = speedlight.march_bound(scene, cfg, s.fin, support, act)
-        out.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
-        tail = (f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), share "
-                f"{100 * b['bound_ms'] / dev_p:.2f}% phased, "
-                f"{100 * b['bound_ms'] / dev_s:.2f}% single (back to back)")
-    tax = lambda ex: 100 * (1 - needed / max(ex, 1))
-    log(f"[9a] {label}: {kind.upper()}, {out['lanes']} lanes "
-        f"({out['active']} active), {cfg.max_raymarch} trips in phases "
-        f"{phases} ({launches[kind]} launches a phased call): phased "
-        f"{ms_p:.4f} ms, single {ms_s:.4f} ms a call "
-        f"(p s s p: {', '.join(f'{v:.4f}' for v in turns)}); back to back "
-        f"{dev_p:.4f} / {dev_s:.4f} ms; lane-trips needed {needed}, "
-        f"executed phased {ex_p} (tax {tax(ex_p):.1f}%), single {ex_s} (tax "
-        f"{tax(ex_s):.1f}%); host syncs a phased call {syncs or 0}; "
-        f"{note}{tail}")
-    return out
-
-
-def phase_phased_calls(dev, cornell_rec, glass_rec, glass_support):
-    """9a: the phased march against the single call on the frames' calls:
-    the Cornell megakernel's bounce 0 (K1a), the engine and tokyo
-    primaries over their 512 trips (K1b), the glass megakernel's bounces 0
-    and 1 (K1c, K1d; bound and share on every GLASS_SUBSET-th lane, whose
-    MLP support 3j counted)."""
-    out = {}
-    scene, calls, names = cornell_rec
-    o, d, a, _, c = calls[0]
-    out[f"cornell megakernel {names[0]}"] = phased_call(
-        f"Cornell megakernel 480x480 {names[0]}", scene, o, d, a, c, 0)
-    for label, (sc, _, cam, cfg) in k1b_paths(dev).items():
-        o, d = bench.utilization_rays(cfg, cam)
-        out[f"{label} primaries"] = phased_call(f"{label} primaries", sc, o,
-                                                d, None, cfg, 0)
-        del o, d
-    glass, gcalls, gnames = glass_rec
-    for mxu in (False, True):
-        k = "K1d" if mxu else "K1c"
-        for j in (0, 1):
-            o, d, a, _, c = gcalls[j]
-            c = c.replace(bunny_mxu=mxu)
-            out[f"glass {gnames[j]}, {k}"] = phased_call(
-                f"glass megakernel 1920x1080 {gnames[j]}, {k}", glass, o, d,
-                a, c)
-            sub = [v[::GLASS_SUBSET].contiguous() for v in (o, d, a)]
-            out[f"glass {gnames[j]}, {k}, every {GLASS_SUBSET}th lane"] = (
-                phased_call(f"glass {gnames[j]}, {k}, every "
-                            f"{GLASS_SUBSET}th lane", glass, *sub, c,
-                            glass_support[mxu][j]))
-    return out
-
-
-def phase_phased_passes(dev):
-    """9b: the megakernel passes with ``march_compaction`` off and on in
-    turns off, on, on, off on bench.py's protocol: the glass bunny at
-    1920x1080 with K1c, then K1d (2048 trips: 7 launches a bounce phased),
-    and the Cornell full box at 480x480 (512 trips: 5). One pass each way
-    at sample 0: bit-identical (K1d: within the golden bar of 35 dB, and
-    said whether bit-identical)."""
-    glass_cfg = bunny.glass_config()
-    glass = bunny.animated_scene(bunny.glass_scene(dev),
-                                 torch.tensor(12.0, device=dev))
-    runs = [("glass 1920x1080, K1c", glass, bunny.glass_environment(
-                device=dev), bunny.camera(glass_cfg.width / glass_cfg.height,
-                                          dev), glass_cfg, GLASS_PASSES),
-            ("glass 1920x1080, K1d", glass, bunny.glass_environment(
-                device=dev), bunny.camera(glass_cfg.width / glass_cfg.height,
-                                          dev),
-             glass_cfg.replace(bunny_mxu=True), GLASS_PASSES),
-            ("Cornell full 480x480, K1a", cornell.full_scene(dev),
-             cornell.sky(dev), cornell.full_camera(dev),
-             cornell.full_config(), MEGA_PASSES)]
-    out = {}
-    for label, scene, env, cam, cfg, passes in runs:
-        kind = march_kernel.variant(scene, cfg)
-        phases = len(march.resolve_phases(cfg))
-        res = {False: [], True: []}
-        for j, comp in enumerate((False, True, True, False)):
-            r = megakernel_passes(
-                f"[9b] {label} march_compaction={comp}", scene, env, cam,
-                cfg.replace(march_compaction=comp), kind, passes,
-                first=1 + passes * j, warm=j < 2,
-                per_bounce=phases if comp else 1)
-            r.pop("img")
-            res[comp].append(r)
-        img, at0 = {}, {}
-        for comp in (False, True):
-            march_kernel.reset_launches()
-            img[comp] = render_image(scene, env, cam,
-                                     cfg.replace(march_compaction=comp),
-                                     spp=1, sample_offset=0, tonemapped=False)
-            torch.cuda.synchronize()
-            at0[comp] = march_kernel.LAUNCHES[kind]
-        # the launches a bounce, measured: a single-shot bounce launches once
-        per_bounce = at0[True] / at0[False]
-        if kind != "k1d" and per_bounce != phases:
-            raise AssertionError(f"[9b] {label}: {at0} launches at sample 0 "
-                                 f"for {phases} phases a bounce")
-        same = torch.equal(img[True], img[False])
-        tm = lambda x: postlib.tonemap(x, cfg).cpu().numpy()
-        db = psnr(tm(img[True]), tm(img[False]))
-        if kind == "k1d" and db < 35.0:
-            raise AssertionError(f"[9b] {label}: {db:.2f} dB between the "
-                                 f"phased and the single-shot image")
-        if kind != "k1d" and not same:
-            raise AssertionError(f"[9b] {label}: the phased image differs")
-        syncs = host_syncs(lambda: render_image(
-            scene, env, cam, cfg.replace(march_compaction=True), spp=1,
-            sample_offset=0, tonemapped=False))
-        mean = lambda comp, k: statistics.mean(v[k] for v in res[comp])
-        out[label] = dict(
-            ms_phased=mean(True, "ms"), ms_single=mean(False, "ms"),
-            msps_phased=mean(True, "msps"), msps_single=mean(False, "msps"),
-            bounces=res[False][0]["bounces"], launches_per_bounce=per_bounce,
-            launches_per_pass=res[True][0]["launches"] / passes,
-            syncs=syncs, bit_identical=same,
-            psnr=None if same else db)  # inf is not JSON
-        log(f"[9b] {label} ({card_line()}): phased "
-            f"{out[label]['ms_phased']:.3f} ms/pass, "
-            f"{out[label]['msps_phased']:.4f} Msamples/s; single "
-            f"{out[label]['ms_single']:.3f} ms/pass, "
-            f"{out[label]['msps_single']:.4f} Msamples/s (means of two runs "
-            f"in turns off, on, on, off); {out[label]['bounces']:.1f} "
-            f"bounces a single-shot pass, "
-            f"{out[label]['launches_per_pass']:.0f} {kind.upper()} launches "
-            f"a phased pass ({per_bounce:g} a bounce at sample 0); host syncs "
-            f"a phased pass {syncs}; the image at sample 0 "
-            f"{'bit-identical' if same else 'not bit-identical'} "
-            f"({'inf' if same else f'{db:.2f}'} dB)")
-    return out
-
-
 def adaptive_frames(scene, env, cam, cfg, compact):
     """ADAPTIVE_FRAMES wavefront frames from a fresh state over the lane ->
     pixel map, repacked actives-first every ADAPTIVE_EVERY frames when
@@ -3275,18 +3063,15 @@ def phase_preview_app(dev):
     return dict(frames=meta["frame"], moved=moved, last_ms=rec[-1]["dt"])
 
 
-def compaction_phases(dev, cornell_rec, glass_rec, glass_support):
-    """9a-9e. Returns what the kernels line reads."""
+def compaction_phases(dev):
+    """9c-9e. Returns what the kernels line reads."""
     t0 = time.perf_counter()
-    calls = phase_phased_calls(dev, cornell_rec, glass_rec, glass_support)
-    passes = phase_phased_passes(dev)
     adaptive = phase_adaptive_compaction(dev)
     reproj = phase_reprojection(dev)
     app = phase_preview_app(dev)
     log(f"[9] compaction and reprojection phases: "
         f"{time.perf_counter() - t0:.1f} s")
-    return dict(calls=calls, passes=passes, adaptive=adaptive,
-                reproj=reproj, app=app)
+    return dict(adaptive=adaptive, reproj=reproj, app=app)
 
 
 # --- distributed: the mesh, sharded stills and frames, the train step -------
@@ -4208,12 +3993,9 @@ def main():
     err_c = max(err_c, bunny_grads["scan"][False]["held"]["err"],
                 bunny_grads["train"]["held"]["err"])
     err_d = max(err_d, bunny_grads["scan"][True]["held"]["err"])
-    comp = compaction_phases(
-        dev, cornell_rec, glass_rec,
-        {mxu: mega_cd[f"{GLASS_CALLS}, {k}"]["supports"]
-         for mxu, k in ((False, "K1c"), (True, "K1d"))})
+    comp = compaction_phases(dev)
     del cornell_rec, glass_rec
-    stamp("compaction and reprojection (9a-9e)")
+    stamp("compaction and reprojection (9c-9e)")
     shard = sharded_phases(dev, grads["train"]["s"])
     stamp("the distributed phases (10a-10f)")
     err_a = max(err_a, grads["err_a"], *(v["k1a"][1] for v
@@ -4354,53 +4136,34 @@ def main():
                 "train step glass 1920x1080, 8 bounces"] = (
                 bunny_grads["train"]["launches"])
         return e
-    def compaction(e, pick, passes, **launches):
-        """The entry with 9a's phased calls whose label ``pick`` accepts
-        (ms each way, back to back, lane-trips executed each way, bound),
-        9b's phased passes named in ``passes`` and the launches of 9c-9d's
-        paths."""
-        keys = ("launches", "ms_phased", "ms_single", "device_ms_phased",
-                "device_ms_single", "executed_phased", "executed_single",
-                "needed", "syncs", "bit_equal", "bound_ms")
-        e["compaction"] = {
-            "phased_calls": {k: {f: v[f] for f in keys if f in v}
-                             for k, v in comp["calls"].items() if pick(k)},
-            "phased_passes": {k: v for k, v in comp["passes"].items()
-                              if k in passes},
-            **launches}
-        return e
     per_frame = lambda rp: (comp["reproj"][rp][0]["launches"]
                             / len(REPROJECT_SCRIPT))
     kernels = [
-        compaction(megakernel(analytic(entry(
+        megakernel(analytic(entry(
             "march_k1a", "march.cu", f"{TPU_KERNEL}:297", launch_a, err_a,
             ka_ms, pa_ms, bound("k1a")), ("cornell 480x480",)),
-            mega_cornell["bounces"], mega_a) | g_a,
-            lambda k: k.startswith("cornell"), ("Cornell full 480x480, K1a",),
-            adaptive_launches_per_frame=(
-                comp["adaptive"]["launches_per_frame"])),
-        compaction(shadow_frames(analytic(entry(
+            mega_cornell["bounces"], mega_a) | g_a
+        | {"compaction": {"adaptive_launches_per_frame":
+                          comp["adaptive"]["launches_per_frame"]}},
+        shadow_frames(analytic(entry(
             "march_k1b", "march.cu", f"{TPU_KERNEL}:338", launch_b, err_b,
             kb_ms, pb_ms, bound("k1b")), ("tokyo 2880x1620",
                                           "engine 768x432"))
-            | {"megakernel": {"golden_launches": k1b_goldens}} | g_b),
-            lambda k: k.startswith(("tokyo", "engine")), (),
-            interactive_launches_per_frame={
-                "reproject": per_frame(True), "plain": per_frame(False)}),
-        bunny_gradients(compaction(shadow_pass(megakernel(
+            | {"megakernel": {"golden_launches": k1b_goldens}} | g_b)
+        | {"compaction": {"interactive_launches_per_frame": {
+            "reproject": per_frame(True), "plain": per_frame(False)}}},
+        bunny_gradients(shadow_pass(megakernel(
             pooled(entry("march_k1c", "march.cu", f"{TPU_KERNEL}:156",
                          launch_c, err_c, kc_ms, pc_ms, bound("k1c")), "k1c",
                    ("glass 1920x1080, K1c", "metal 3840x2160, K1c")),
             mega_glass[False][0]["bounces"], mega_cd[f"{GLASS_CALLS}, K1c"]),
-            "glass NEE shadow, K1c", False),
-            lambda k: "K1c" in k, ("glass 1920x1080, K1c",)), False),
-        bunny_gradients(compaction(shadow_pass(megakernel(
+            "glass NEE shadow, K1c", False), False),
+        bunny_gradients(shadow_pass(megakernel(
             pooled(entry("march_k1d", "march_mxu.cu", f"{TPU_KERNEL}:124",
                          launch_d, err_d, kd_ms, pd_ms, bound("k1d")), "k1d",
                    ("glass 1920x1080, K1d", "metal 3840x2160, K1d")),
             mega_glass[True][0]["bounces"], mega_cd[f"{GLASS_CALLS}, K1d"]),
-            "glass NEE shadow, K1d", True),
-            lambda k: "K1d" in k, ("glass 1920x1080, K1d",)), True),
+            "glass NEE shadow, K1d", True), True),
         entry("fma_chains_k2", "speedlight.cu",
               "raytracingpbr_tpu/utils/speedlight.py:94", launch_2, err_2,
               k2_ms, k2_plain, (k2_bound, "operations"))]

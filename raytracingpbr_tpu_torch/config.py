@@ -1,8 +1,9 @@
 """Render configuration.
 
 Mirror of ``raytracingpbr_tpu/config.py``: the same enums (same values) and
-the same frozen ``RenderConfig`` fields, defaults and properties, so a JAX
-config converts field by field (``convert.config_from_jax``). The JAX file
+the same frozen ``RenderConfig`` fields, defaults and properties, less the
+TPU kernel's scheduling fields, so a JAX config converts field by field
+(``convert.config_from_jax``). The JAX file
 is not imported: importing it runs the JAX package's ``__init__``, which
 imports jax. See the JAX file for the provenance of every default.
 """
@@ -49,16 +50,12 @@ class Roulette(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static render parameters; field for field the JAX ``RenderConfig``.
-
-    Configs convert one to one. ``march_chunk`` and ``march_tile_rows``
-    are TPU kernel knobs with no counterpart here (the CUDA march has one
-    thread per lane and exits per lane, or per warp in K1d), accepted and
-    ignored, save that ``march_chunk`` rounds the phased march's budgets
-    as in the JAX package. ``march_compaction`` runs ``march()`` in the
-    phases of ``march_phases`` (or the automatic split) over repartitioned
-    lanes (``ops/march.march_phased``). ``bunny_mxu`` selects the
-    tensor-core bunny march K1d.
+    """Static render parameters; field for field the JAX ``RenderConfig``
+    less ``march_chunk``, ``march_tile_rows`` and ``march_phases``, the TPU
+    kernel's unroll, tile and phase schedule, which have no counterpart
+    here (the CUDA march has one thread per lane and exits per lane, or
+    per warp in K1d, in one launch a call). ``convert.config_from_jax``
+    drops them. ``bunny_mxu`` selects the tensor-core bunny march K1d.
     """
 
     resolution: Tuple[int, int] = (768, 432)  # (W, H)
@@ -87,10 +84,10 @@ class RenderConfig:
     march_t0: float = 0.0
     max_dis: float = 1e3
 
-    march_chunk: Optional[int] = None
-    march_tile_rows: Optional[int] = None
+    # Read nowhere: the JAX package's phased march gives its single call's
+    # outputs bit for bit, and the port's march is one call. Kept because
+    # the benchmark's configuration files name it.
     march_compaction: bool = False
-    march_phases: Optional[Tuple[int, ...]] = None
 
     escape_bound: bool = False
 

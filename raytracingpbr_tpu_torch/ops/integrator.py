@@ -89,8 +89,7 @@ def shadow_march(scene: Scene, origin, direction, cfg: RenderConfig,
             max_raymarch=(cfg.shadow_max_raymarch
                           or min(128, cfg.max_raymarch)),
             hit_criterion=HitCriterion.ABSOLUTE,
-            hit_precision=(cfg.shadow_hit_precision or 0.5 * cfg.min_dis),
-            march_chunk=None)
+            hit_precision=(cfg.shadow_hit_precision or 0.5 * cfg.min_dis))
     return marchlib.march(scene, origin, direction, sc,
                           differentiable=False, active=gate).hit
 

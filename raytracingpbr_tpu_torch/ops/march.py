@@ -13,11 +13,7 @@ in the matmul form, the plain version of K1d, which the tensor-core kernel
 matches within the bar of :func:`assert_march_close`.
 
 Dispatch follows the tensors: ``march_resumable`` and ``march`` send CUDA
-tensors to the kernel and CPU tensors to the plain version. With
-``cfg.march_compaction``, ``march`` runs its budget in phases over
-repartitioned lanes (``march_phased``, the JAX package's compaction of the
-march, a wrapper of ``march_resumable`` with no kernel of its own), with
-the same results bit for bit.
+tensors to the kernel and CPU tensors to the plain version.
 
 Gradients: the march loop is detached (autograd through hundreds of trips
 is hopeless), and ``march(differentiable=True)`` re-attaches them at the
@@ -28,7 +24,7 @@ the ray's origin and direction, whichever march found the hit.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,7 +33,6 @@ from ..core.math import dot
 from ..kernels import march_kernel
 from ..utils.profiling import traced
 from . import scene as scenelib
-from .compact import actives_first_perm
 from .scene import Scene
 
 
@@ -265,104 +260,6 @@ def march_resumable(scene: Scene, origin: torch.Tensor,
                                      init)
 
 
-def resolve_phases(cfg: RenderConfig) -> Tuple[int, ...]:
-    """Trip budgets of the phased march, in order; they sum to
-    ``cfg.max_raymarch``. ``cfg.march_phases`` wins when set (ValueError
-    unless positive and summing to the budget). Otherwise a budget of at
-    most ``max(64, 2 * chunk)`` runs in one phase, and a longer one in
-    phases of 32, 32, then doubling, each capped by what is left (512:
-    32 + 32 + 64 + 128 + 256; 2048: ... + 512 + 1024). ``chunk`` is
-    ``cfg.march_chunk`` or 1; the budgets are rounded up to its multiples,
-    as the JAX package rounds them (the port's kernels have no chunk, so
-    it shapes only the split)."""
-    if cfg.march_phases is not None:
-        ps = tuple(int(b) for b in cfg.march_phases)
-        if sum(ps) != cfg.max_raymarch or any(b <= 0 for b in ps):
-            raise ValueError(
-                f"march_phases={cfg.march_phases} must be positive and sum "
-                f"to max_raymarch={cfg.max_raymarch}")
-        return ps
-    m = cfg.max_raymarch
-    q = cfg.march_chunk if cfg.march_chunk else 1
-
-    def up(b):
-        return -(-b // q) * q
-
-    if m <= max(64, 2 * q):
-        return (m,)
-    phases, nxt = [], up(32)
-    while sum(phases) < m:
-        phases.append(min(nxt, m - sum(phases)))
-        if len(phases) >= 2:
-            nxt = up(nxt * 2)
-    return tuple(phases)
-
-
-def march_phased(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
-                 cfg: RenderConfig, active: Optional[torch.Tensor] = None,
-                 init=None, counts: Optional[torch.Tensor] = None
-                 ) -> ResumableResult:
-    """The compacted march (``cfg.march_compaction``): the budget of
-    ``cfg.max_raymarch`` trips runs in the phases of :func:`resolve_phases`.
-    Each phase marches every lane still going a phase's budget through
-    :func:`march_resumable` (the kernels on the card, the plain march on
-    the CPU), resumed from the carried ``(t, w, s, d)`` with the ``active``
-    gate; between phases a stable counting partition
-    (``ops/compact.actives_first_perm``) moves the lanes still going to the
-    front, so that a warp holds lanes that still march. Per lane the trips are
-    those of one uninterrupted march, so all eight outputs equal
-    :func:`march_resumable`'s bit for bit: ``fin`` is summed over the
-    phases, a lane done at a phase's entry keeps its ``index`` and
-    ``hit``, and the results return to the callers' lane order by one
-    inverse scatter. Every phase launches over the whole batch (the lanes
-    done wait at the back); nothing here asks the card for a count.
-    ``init`` as in :func:`march_resumable`; ``counts``, for the work
-    accounting only (``utils/speedlight``), is passed to each phase's
-    K1c/K1d launch."""
-    phases = resolve_phases(cfg)
-    n = origin.shape[0]
-    dev = origin.device
-    with torch.no_grad():
-        if init is None:
-            init = tuple(torch.full((n,), v, dtype=origin.dtype, device=dev)
-                         for v in (cfg.march_t0, cfg.omega, 0.0,
-                                   scenelib.MAX_DIS))
-        t, w, s, d = init
-        done = (torch.zeros((n,), dtype=torch.int32, device=dev)
-                if active is None else (~active).to(torch.int32))
-        order = torch.arange(n, device=dev)  # lane position -> ray id
-        index = torch.zeros((n,), dtype=torch.int32, device=dev)
-        hit = torch.zeros((n,), dtype=torch.bool, device=dev)
-        fin = torch.zeros((n,), dtype=torch.int32, device=dev)
-        o_cur, d_cur = origin, direction
-        for k, budget in enumerate(phases):
-            if k > 0:
-                perm = actives_first_perm(done == 0)
-                order, t, w, s, d, index, hit, fin, done = (
-                    v.index_select(0, perm)
-                    for v in (order, t, w, s, d, index, hit, fin, done))
-                o_cur = origin.index_select(0, order)
-                d_cur = direction.index_select(0, order)
-            going = done == 0
-            pcfg = cfg.replace(max_raymarch=budget)
-            if counts is not None:
-                rr = ResumableResult(*march_kernel.march_resumable_cuda(
-                    scene, o_cur, d_cur, pcfg, active=going,
-                    init=(t, w, s, d), counts=counts))
-            else:
-                rr = march_resumable(scene, o_cur, d_cur, pcfg,
-                                     active=going, init=(t, w, s, d))
-            # lanes done at entry echo their (t, w, s, d) and come out with
-            # index 0, hit False, fin 0: they keep what they had
-            t, w, s, d, done = rr.t, rr.w, rr.s, rr.d, rr.done
-            index = torch.where(going, rr.index, index)
-            hit = torch.where(going, rr.hit, hit)
-            fin = fin + rr.fin
-        out = (t, index, hit, fin, w, s, d, done)
-        return ResumableResult(*(torch.empty_like(v).index_copy_(0, order, v)
-                                 for v in out))
-
-
 class _HitT(torch.autograd.Function):
     """Identity on ``t`` with implicit-function gradients at the hit point
     (the JAX package's ``custom_vjp``). The buffers the signed distance
@@ -421,14 +318,12 @@ def march(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
           cfg: RenderConfig, differentiable: bool = True,
           active: Optional[torch.Tensor] = None) -> MarchResult:
     """Sphere-trace a flat ray batch with the full ``cfg.max_raymarch``
-    budget (in the phases of :func:`march_phased` when
-    ``cfg.march_compaction``, with the same results). ``active``: optional
-    (N,) bool gate; inactive lanes' outputs are their inits and must be
+    budget in one :func:`march_resumable` call. ``active``: optional (N,)
+    bool gate; inactive lanes' outputs are their inits and must be
     ignored. When ``differentiable`` (the default,
     as in the reference) and autograd records, ``t`` and the position carry
     :func:`_hit_t`'s gradients; the loop itself is detached either way."""
-    impl = march_phased if cfg.march_compaction else march_resumable
-    rr = impl(scene, origin, direction, cfg, active=active)
+    rr = march_resumable(scene, origin, direction, cfg, active=active)
     iters = (torch.amax(rr.fin) if rr.fin.numel()
              else torch.zeros((), dtype=torch.int32, device=origin.device))
     t = rr.t

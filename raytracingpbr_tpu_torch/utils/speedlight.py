@@ -8,10 +8,9 @@ the flop model and imports nothing of the JAX package).
    for the bunny a bound built on this count is a lower bound on time.
 2. :func:`measure_vpu_peak` — the JAX name is kept: on the H100 it is the
    measured FP32 FFMA roof, through kernel K2 (``kernels/fma_kernel``).
-3. :func:`march_utilization` — one budgeted march through the kernels
-   (the phased march under ``cfg.march_compaction``), timed on the card,
-   with the lane-trips it needed and the ones the card executed
-   (:func:`warp_executed`, :func:`phased_executed`), and
+3. :func:`march_utilization` — one budgeted march through the kernels,
+   timed on the card, with the lane-trips it needed and the ones the card
+   executed (:func:`warp_executed`), and
    :func:`march_bound`, the least time the card could take for the same
    work.
 
@@ -146,32 +145,6 @@ def warp_executed(fin: torch.Tensor) -> int:
     return int(f.reshape(-1, WARP).amax(dim=1).sum()) * WARP
 
 
-def phased_executed(fin: torch.Tensor, phases) -> int:
-    """Lane-trips K1a or K1b executes under ``ops/march.march_phased`` for
-    the per-lane trip counts ``fin`` of the unphased march (``phases``:
-    ``march.resolve_phases``). Replays the phased march's bookkeeping: the
-    first phase runs the lanes in their own order; each later one moves
-    the lanes still going to the front, in their order (the stable
-    partition), and the lanes done wait at the back and take no trips. In
-    each phase a lane takes ``min(trips left, budget)`` trips, and a warp
-    of 32 consecutive lanes the trips of its longest lane
-    (:func:`warp_executed`)."""
-    need = fin.to(torch.int64)
-    start = torch.zeros_like(need)
-    going = need > 0  # gated lanes never march
-    executed = 0
-    for k, b in enumerate(phases):
-        left = torch.where(going, need - start, torch.zeros_like(need))
-        if k > 0:
-            left = left[going]
-        if left.numel() == 0:
-            break
-        executed += warp_executed(torch.clamp_max(left, b))
-        start = torch.minimum(start + b, need)
-        going = going & (start < need)
-    return executed
-
-
 def support_lane_trips(scene, origin, direction, cfg: RenderConfig,
                        active=None, init=None, plain: Optional[list] = None):
     """``(inside, warp_inside)`` for one budgeted march, counted by the
@@ -257,16 +230,10 @@ def executed_counts(scene, origin, direction, cfg: RenderConfig,
     """``(lane-trips executed, MLP evaluations)`` that K1c or K1d runs on
     these inputs, from one launch with its ``counts``: 32 for each warp and
     march step, and the queue entries the MLP ran, with a warp's padding.
-    With ``cfg.march_compaction``, summed over the launches of the phased
-    march. For the work accounting only."""
+    For the work accounting only."""
     counts = torch.zeros((2,), dtype=torch.int64, device=origin.device)
-    if cfg.march_compaction:
-        marchlib.march_phased(scene, origin, direction, cfg, active=active,
-                              init=init, counts=counts)
-    else:
-        march_kernel.march_resumable_cuda(scene, origin, direction, cfg,
-                                          active=active, init=init,
-                                          counts=counts)
+    march_kernel.march_resumable_cuda(scene, origin, direction, cfg,
+                                      active=active, init=init, counts=counts)
     return int(counts[1]), int(counts[0])
 
 
@@ -274,11 +241,7 @@ def march_utilization(scene, origin, direction, cfg: RenderConfig,
                       active=None, init=None, reps: int = 10) -> dict:
     """Time one budgeted march (``cfg.max_raymarch`` trips) through the
     kernel the port dispatches it to, on CUDA tensors, and report its work
-    against K2's roof and its bound (:func:`march_bound`). With
-    ``cfg.march_compaction`` the march is ``ops/march.march_phased``, its
-    executed work :func:`phased_executed` for K1a and K1b and the kernel's
-    counts summed over the phases for K1c and K1d; the bound is the same
-    function's, so the same.
+    against K2's roof and its bound (:func:`march_bound`).
 
     ``utilization_pct`` is the needed work's achieved rate (support-counted
     flops over the measured time) over the measured roof;
@@ -290,10 +253,8 @@ def march_utilization(scene, origin, direction, cfg: RenderConfig,
     warp-per-32-lanes MLP would run on the same inputs."""
     if not origin.is_cuda:
         raise ValueError("march_utilization times the card: CUDA tensors")
-    impl = (marchlib.march_phased if cfg.march_compaction
-            else marchlib.march_resumable)
-    run = lambda: impl(scene, origin, direction, cfg, active=active,
-                       init=init)
+    run = lambda: marchlib.march_resumable(scene, origin, direction, cfg,
+                                           active=active, init=init)
     res = run()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -310,8 +271,7 @@ def march_utilization(scene, origin, direction, cfg: RenderConfig,
                                                  cfg, active, init)
         mlp = mlp_work(support, mlp_executed)
     else:
-        executed = (phased_executed(res.fin, marchlib.resolve_phases(cfg))
-                    if cfg.march_compaction else warp_executed(res.fin))
+        executed = warp_executed(res.fin)
         mlp = mlp_work(support, support)
     bound = march_bound(scene, cfg, res.fin, support, active, init)
     peak = measure_vpu_peak()
@@ -319,8 +279,6 @@ def march_utilization(scene, origin, direction, cfg: RenderConfig,
     needed = bound["lane_iters_needed"]
     return {
         "march_ms": ms,
-        "phases": (len(marchlib.resolve_phases(cfg))
-                   if cfg.march_compaction else 1),
         "lane_iters_executed": executed,
         "lane_iters_needed": needed,
         **mlp,

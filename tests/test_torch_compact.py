@@ -21,6 +21,7 @@ from raytracingpbr_tpu.core.types import make_frame_state as j_make_state
 from raytracingpbr_tpu.models import cornell as jcornell
 from raytracingpbr_tpu.ops import compact as jcompact
 from raytracingpbr_tpu.ops import integrator as jinteg
+from raytracingpbr_tpu.pallas import march_kernel as mk
 from raytracingpbr_tpu_torch import convert
 from raytracingpbr_tpu_torch.core.types import Rays, make_frame_state
 from raytracingpbr_tpu_torch.models import cornell as tcornell
@@ -79,13 +80,27 @@ def port_runs():
     return cfg, _port_frames(cfg, 0), _port_frames(cfg, 2)
 
 
+# the JAX package's two stable actives-first partitions: the frame
+# compaction's, and the phased march's of the lanes not done
+PERM_REFS = {
+    "compact": lambda active: jcompact.actives_first_perm(
+        jnp.asarray(active)),
+    "phased_march": lambda active: mk._partition_active(
+        jnp.asarray(~active, jnp.int32)),
+}
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_actives_first_perm_matches_jax(seed):
+@pytest.mark.parametrize("ref", sorted(PERM_REFS))
+def test_actives_first_perm_matches_jax(ref, seed):
     active = np.random.default_rng(seed).random(997) < 0.4
-    ref = np.asarray(jcompact.actives_first_perm(jnp.asarray(active)))
+    want = np.asarray(PERM_REFS[ref](active))
     got = nn(tcompact.actives_first_perm(tt(active)))
-    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, want)
     assert active[got[:active.sum()]].all()
+    assert nn(tcompact.actives_first_perm(tt([False, True, False, True, True,
+                                             False, True]))).tolist() \
+        == [1, 3, 4, 6, 0, 2, 5]
 
 
 def test_compact_uncompact_roundtrip():

@@ -47,7 +47,7 @@ from raytracingpbr_tpu_torch.utils import speedlight
 
 from .torch_helpers import (NORMAL_POSES,  # noqa: F401
                             assert_normals_bit_equal, bunny_beside_shapes,
-                            cuda_device, many_objects_scene,
+                            chained_resumes, cuda_device, many_objects_scene,
                             mixed_analytic_scene, normal_points,
                             normal_scene, random_rays)
 
@@ -821,7 +821,7 @@ def test_bunny_train_step_then_kernel_marches_the_update(cuda_device):
     assert not torch.equal(new[0], old[0])
 
 
-PHASED_CASES = {
+CHAIN_CASES = {
     "k1a": lambda dev: (cornell.full_scene(dev),
                         cornell.full_config().replace(max_raymarch=256)),
     "k1b": lambda dev: (demo.engine_scene(dev),
@@ -831,15 +831,20 @@ PHASED_CASES = {
     "k1d": lambda dev: (bunny.glass_scene(dev), bunny.glass_config().replace(
         max_raymarch=256, bunny_mxu=True)),
 }
+# the doubling schedule of 256 trips
+CHAIN_BUDGETS = (32, 32, 64, 128)
 
 
-@pytest.mark.parametrize("kind", sorted(PHASED_CASES))
-def test_phased_march_equals_single_call(cuda_device, kind):
-    """``march.march_phased`` on the card: one launch a phase, no other;
-    the eight outputs equal one launch of the whole budget bit for bit,
-    gated lanes included (K1d too: its MLP rows are independent), and
-    ``march()`` under ``cfg.march_compaction`` takes that path."""
-    scene, cfg = PHASED_CASES[kind](cuda_device)
+@pytest.mark.parametrize("kind", sorted(CHAIN_CASES))
+def test_chained_resumes_equal_single_call(cuda_device, kind):
+    """Chained resumes through each kernel over the doubling schedule, the
+    lanes done or gated off at entry sitting out the later calls: one
+    launch a call, no other, and the eight outputs (``fin`` summed) equal
+    one launch of the whole budget bit for bit, gated lanes included (K1d
+    too: its MLP rows are independent); ``march()`` with
+    ``cfg.march_compaction`` gives that call's results."""
+    scene, cfg = CHAIN_CASES[kind](cuda_device)
+    assert sum(CHAIN_BUDGETS) == cfg.max_raymarch
     o, d = (torch.as_tensor(v, device=cuda_device)
             for v in random_rays(5000, 3, center=(0.0, 0.0, 3.0),
                                  spread=0.3))
@@ -848,11 +853,12 @@ def test_phased_march_equals_single_call(cuda_device, kind):
     single = tmarch.ResumableResult(*march_kernel.march_resumable_cuda(
         scene, o, d, cfg, active=act))
     march_kernel.reset_launches()
-    phased = tmarch.march_phased(scene, o, d, cfg, active=act)
+    out = chained_resumes(scene, o, d, cfg, CHAIN_BUDGETS, act)
     torch.cuda.synchronize()
-    assert march_kernel.LAUNCHES[kind] == len(tmarch.resolve_phases(cfg))
+    assert march_kernel.LAUNCHES[kind] == len(CHAIN_BUDGETS)
     assert sum(march_kernel.LAUNCHES.values()) == march_kernel.LAUNCHES[kind]
-    assert_bit_equal(phased, single)
+    assert int((single.fin > CHAIN_BUDGETS[0]).sum()) > 0
+    assert_bit_equal(out, single)
     res = tmarch.march(scene, o, d, cfg.replace(march_compaction=True),
                        differentiable=False, active=act)
     assert torch.equal(res.t, single.t) and torch.equal(res.hit, single.hit)

@@ -4,8 +4,9 @@ properties within the port.
 Against JAX the bars are those of ``tests/test_pallas.py``: at least 99.9%
 hit agreement, t within rtol 1e-3 on agreeing lanes, equal index on lanes
 both call a hit (XLA-CPU contracts FMAs where PyTorch rounds every op, so a
-long march can flip a boundary decision on a few lanes). Within the port,
-chained resumes are bit-identical to one march.
+long march can flip a boundary decision on a few lanes); against JAX's
+phased march, the port's one call. Within the port, chained resumes are
+bit-identical to one march.
 """
 import functools
 
@@ -19,13 +20,15 @@ from raytracingpbr_tpu.models import cornell as jcornell
 from raytracingpbr_tpu.models import demo as jdemo
 from raytracingpbr_tpu.ops import camera as jcamera
 from raytracingpbr_tpu.ops import march as jmarch
+from raytracingpbr_tpu.pallas import march_kernel as mk
 from raytracingpbr_tpu_torch.convert import config_from_jax, scene_from_jax
 from raytracingpbr_tpu_torch.kernels import march_kernel
 from raytracingpbr_tpu_torch.models import bunny as tbunny
 from raytracingpbr_tpu_torch.models import cornell as tcornell
+from raytracingpbr_tpu_torch.models import demo as tdemo
 from raytracingpbr_tpu_torch.ops import march as tmarch
 
-from .torch_helpers import CPU, nn, random_rays, tt
+from .torch_helpers import CPU, chained_resumes, nn, random_rays, tt
 
 
 def cornell_primaries(cfg, n=None, seed=3):
@@ -109,49 +112,100 @@ def test_plain_resumable_matches_pallas_interpret(monkeypatch):
                                       np.asarray(getattr(ref, k))[agree])
 
 
-def _chain(scene, o, d, cfg, budget):
-    """Chained budget-B resumes, as the wavefront's split carry runs
-    them."""
-    n = o.shape[0]
-    t = tt(np.full(n, cfg.march_t0, np.float32))
-    w = tt(np.full(n, cfg.omega, np.float32))
-    s = tt(np.zeros(n, np.float32))
-    dd = tt(np.full(n, 1e3, np.float32))
-    cum = np.zeros(n, np.int64)
-    idx = np.zeros(n, np.int32)
-    hit = np.zeros(n, bool)
-    live = np.ones(n, bool)
-    mcfg = cfg.replace(max_raymarch=budget)
-    for _ in range(cfg.max_raymarch // budget):
-        rr = tmarch.march_resumable(scene, o, d, mcfg, active=tt(live),
-                                    init=(t, w, s, dd))
-        cum += nn(rr.fin)
-        done_now = live & ((nn(rr.done) > 0) | (cum >= cfg.max_raymarch))
-        idx = np.where(live, nn(rr.index), idx)
-        hit = np.where(live, nn(rr.hit), hit)
-        t, w, s, dd = rr.t, rr.w, rr.s, rr.d  # inactive lanes echo init
-        live = live & ~done_now
-    return nn(t), idx, hit, cum
+# not a multiple of the TPU tile: JAX pads, the port does not
+PHASED_RAYS = 777
 
 
-@pytest.mark.parametrize("policy", ["constant", "rollback"])
-def test_chained_resumes_bit_identical(policy):
-    """Chained budget-16 resumes equal one uninterrupted march, lane by lane
-    and bit for bit (the property the split wavefront rests on)."""
-    scene = tcornell.full_scene(CPU)
-    cfg = tcornell.full_config().replace(resolution=(48, 48),
-                                         max_raymarch=64)
-    if policy == "rollback":
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("family", ["minimal", "engine"])
+def test_march_equals_jax_phased_march(monkeypatch, family, gated):
+    """The port's one march call against the JAX package's phased
+    (compacted) march, Pallas in interpret mode, on
+    ``tests/test_pallas.py::test_phased_march_bit_equal``'s cases: index,
+    hit and fin equal on every lane, t within ``tests/test_pallas.py``'s
+    rtol and atol 1e-3 (the two frameworks round the march's arithmetic
+    apart in the last ulp). This is why the port may ignore
+    ``march_compaction``."""
+    from jax.experimental import pallas as pl
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    if family == "minimal":
+        js = jcornell.minimal_scene()
+        jcfg = jcornell.minimal_config().replace(max_raymarch=256)
+    else:
+        js, jcfg = jdemo.engine_scene(), jdemo.engine_config().replace(
+            max_raymarch=128)
+    assert len(mk.resolve_phases(jcfg)) > 1
+    o, d = random_rays(PHASED_RAYS, 0)
+    gate = (np.random.default_rng(1).random(PHASED_RAYS) < 0.7
+            if gated else None)
+    jt, ji, jh, jf = mk.march_phased(
+        js, jnp.asarray(o), jnp.asarray(d), jcfg,
+        active=None if gate is None else jnp.asarray(gate))
+    got = tmarch.march_resumable(scene_from_jax(js, CPU), tt(o), tt(d),
+                                 config_from_jax(jcfg),
+                                 active=None if gate is None else tt(gate))
+    np.testing.assert_array_equal(nn(got.hit), np.asarray(jh))
+    np.testing.assert_array_equal(nn(got.index), np.asarray(ji))
+    np.testing.assert_array_equal(nn(got.fin), np.asarray(jf))
+    np.testing.assert_allclose(nn(got.t), np.asarray(jt), rtol=1e-3,
+                               atol=1e-3)
+
+
+def _chain_family(family):
+    """(scene, config at a budget of 64, 512 rays) of one march family."""
+    if family == "engine_rollback_cone":
+        cfg = tdemo.engine_config().replace(max_raymarch=64)
+        return (tdemo.engine_scene(CPU), cfg,
+                random_rays(512, seed=4, center=(0.0, 0.0, 3.5)))
+    if family == "minimal":
+        cfg = tcornell.minimal_config().replace(max_raymarch=64)
+        return (tcornell.minimal_scene(CPU), cfg,
+                random_rays(512, seed=1, center=(0.0, 0.0, 0.5), spread=0.3))
+    if family == "cornell_v3_rollback":
+        # the primaries converge within 16 trips here: rays from inside
+        # the box, some grazing, outlast a call
         cfg = tcornell.v3_config().replace(resolution=(48, 48),
                                            max_raymarch=64)
-    o, d = (tt(v) for v in cornell_primaries(cfg, n=512))
-    one = tmarch.march_resumable(scene, o, d, cfg)
-    t, idx, hit, cum = _chain(scene, o, d, cfg, 16)
-    np.testing.assert_array_equal(t, nn(one.t))
-    np.testing.assert_array_equal(hit, nn(one.hit))
-    np.testing.assert_array_equal(idx, nn(one.index))
-    # consumption: the lane's need, or the full budget if it never converged
-    np.testing.assert_array_equal(cum, nn(one.fin))
+        return (tcornell.full_scene(CPU), cfg,
+                random_rays(512, seed=2, center=(0.0, 0.0, 0.5), spread=0.3))
+    cfg = tcornell.full_config().replace(resolution=(48, 48), max_raymarch=64)
+    return tcornell.full_scene(CPU), cfg, cornell_primaries(cfg, n=512)
+
+
+CHAIN_SCHEDULES = {"steps16": (16, 16, 16, 16), "doubling": (8, 8, 16, 32)}
+
+
+@pytest.mark.parametrize("schedule", sorted(CHAIN_SCHEDULES))
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("family", ["cornell_full_constant_absolute",
+                                    "cornell_v3_rollback", "minimal",
+                                    "engine_rollback_cone"])
+def test_chained_resumes_bit_identical(family, gated, schedule):
+    """Chained resumes over even 16-trip steps or the doubling 8+8+16+32
+    equal one uninterrupted call with the same gate, lane by lane and bit
+    for bit on all eight outputs, ``fin`` summed (the property the split
+    wavefront and the megakernel's gate rest on); gated lanes echo their
+    init."""
+    scene, cfg, (o, d) = _chain_family(family)
+    o, d = tt(o), tt(d)
+    gate = (tt(np.random.default_rng(5).random(o.shape[0]) < 0.7)
+            if gated else None)
+    budgets = CHAIN_SCHEDULES[schedule]
+    assert sum(budgets) == cfg.max_raymarch
+    one = tmarch.march_resumable(scene, o, d, cfg, active=gate)
+    got = chained_resumes(scene, o, d, cfg, budgets, gate)
+    for name, a, b in zip(tmarch.ResumableResult._fields, got, one):
+        assert torch.equal(a, b), name
+    # some lanes resume: they outlast the first call
+    assert int((one.fin > budgets[0]).sum()) > 0
+    if gated:
+        off = ~gate
+        assert int(off.sum()) > 0
+        assert bool((got.t[off] == cfg.march_t0).all())
+        assert bool((got.w[off] == cfg.omega).all())
+        assert bool((got.fin[off] == 0).all())
+        assert not bool(got.hit[off].any())
 
 
 def test_inactive_lanes_echo_init_and_ragged_n():

@@ -194,6 +194,22 @@ def test_early_exit_check_every_k_bit_identical(monkeypatch):
     assert torch.equal(imgs[0], imgs[1])
 
 
+def test_render_image_with_compaction_is_bit_identical():
+    """``march_compaction``, which the benchmark's configuration files
+    carry, changes no bit of the megakernel's image: the march is one call
+    either way (``test_march_equals_jax_phased_march`` in
+    ``tests/test_torch_march.py`` holds that call to the JAX package's
+    phased march)."""
+    cfg = tcornell.full_config().replace(resolution=(12, 12),
+                                         max_raymarch=256, max_raytrace=6)
+    args = (tcornell.full_scene(CPU), tcornell.sky(CPU),
+            tcornell.full_camera(CPU))
+    ref = tinteg.render_image(*args, cfg, spp=2, tonemapped=False)
+    got = tinteg.render_image(*args, cfg.replace(march_compaction=True),
+                              spp=2, tonemapped=False)
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("mode", ["differentiable", "replay"])
 def test_unported_modes_raise(mode):
     """The gradient modes, once unported, now run: ``render_image`` and

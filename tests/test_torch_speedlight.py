@@ -204,10 +204,5 @@ def test_card_measurements_need_the_card():
         speedlight.measure_vpu_peak()
     scene, cfg = tcornell.full_scene(CPU), tcornell.full_config()
     o, d = tt(np.zeros((4, 3), np.float32)), tt(np.ones((4, 3), np.float32))
-    with pytest.raises(ValueError):
-        speedlight.march_utilization(scene, o, d, cfg)
-    # the phased march (march_compaction), once unported, is timed on the
-    # card as the unphased one is
     with pytest.raises(ValueError, match="CUDA tensors"):
-        speedlight.march_utilization(scene, o, d,
-                                     cfg.replace(march_compaction=True))
+        speedlight.march_utilization(scene, o, d, cfg)

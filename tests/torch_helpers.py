@@ -47,6 +47,27 @@ def random_rays(n: int, seed: int = 0, center=(0.0, 0.0, 3.5),
     return o.astype(np.float32), d.astype(np.float32)
 
 
+def chained_resumes(scene, o, d, cfg, budgets, active=None):
+    """``ops/march.march_resumable`` over ``budgets`` trips a call, as the
+    wavefront's split carry and the megakernel's ``alive`` gate chain it:
+    a lane done, or gated off at entry, sits out the later calls and
+    echoes its state; it keeps its ``index`` and ``hit``, and ``fin`` is
+    summed over the calls. One kernel launch a call on the card."""
+    from raytracingpbr_tpu_torch.ops import march as tmarch
+    out = None
+    for b in budgets:
+        rr = tmarch.march_resumable(
+            scene, o, d, cfg.replace(max_raymarch=b), active=active,
+            init=None if out is None else (out.t, out.w, out.s, out.d))
+        if out is not None:
+            rr = rr._replace(index=torch.where(active, rr.index, out.index),
+                             hit=torch.where(active, rr.hit, out.hit),
+                             fin=out.fin + rr.fin)
+        out = rr
+        active = out.done == 0
+    return out
+
+
 def mixed_analytic_scene(device, plane=True):
     """Every analytic shape under the identity, signed permutations keyed
     by each axis (90 and 180 degree turns) and arbitrary rotations; a NONE;
