@@ -198,9 +198,9 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     scene as it stood (K1c bit-equal, K1d the march bar), the kernel timed
     on the whole calls and on the subsets, the subsets' bound; the step on
     a 240x135 crop with K1c against the same step with the plain march
-    (rtol 1e-5; the albedo's, added with atomics, 1e-4); K1d's against
-    K1c's on the crop, under BUNNY_MXU_SPREAD of K1c's own difference
-    between two samples there.
+    (rtol 1e-5; the albedo's, small differences of large sums, 1e-4);
+    K1d's against K1c's on the crop, under BUNNY_MXU_SPREAD of K1c's own
+    difference between two samples there.
 8g. training the bunny's MLP with ``param_mask(set())`` (the object
     buffers frozen, the MLP trained, K1c): the recovery of an output bias
     shifted by BUNNY_BIAS_SHIFT at BUNNY_RECOVERY_RES (the loss falls by
@@ -287,6 +287,16 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     frame at 2880x1620 and one Cornell frame at 480x480 with the kernel
     and with autograd's normal in its place, pixels and state
     bit-identical, the kernel's launches a frame.
+14. the material gradient kernel (``csrc/material_grad.cu``): alone at
+    the glass step's 2,073,600 lanes on its one object (the albedo alone,
+    and all six parts) and at the Cornell step's 230,400 lanes over its 8
+    objects (the albedo), back to back over four copies of the inputs,
+    against its byte bound, beside the plain backward (an ``index_add_``
+    a part) and ``index_select``'s backward as the gather ran it before
+    (``library_ms``), within 1e-5 of a float64 sum's absolute size; one
+    Cornell scan-AD step at 480x480 and one glass step at 1920x1080, 8
+    bounces each, with the kernel's calls, ``materials_at``'s routes and
+    the normals' routes counted.
 
 The protocols that time frames, passes and steps (3, 3b, 3c, 3f, 3g-3i,
 7b, 7c, 8a-8c, 8f) are ``raytracingpbr_tpu_torch/bench.py``'s, as are
@@ -306,7 +316,8 @@ reprojected engine frame's in 10b; K1a, K1b, K1c and K2 with the bench's
 launches in 11, by source; the RNG kernel with its launches and draws in
 12's frame and step, its times alone against its bound, and the bench's
 launches by source; the normal kernel with its launches a frame and its
-times alone against its bound, 13),
+times alone against its bound, 13; the material gradient kernel with its
+calls a step and its times alone against its bound, 14),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no jax.
 """
@@ -339,6 +350,7 @@ from raytracingpbr_tpu_torch.io import checkpoint as ckpt
 from raytracingpbr_tpu_torch.io import image as imageio
 from raytracingpbr_tpu_torch.io.image import read_png
 from raytracingpbr_tpu_torch.kernels import (build, fma_kernel, march_kernel,
+                                             material_grad_kernel,
                                              normal_kernel, rng_kernel)
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.models.goldens import GOLDENS, render_golden
@@ -452,6 +464,14 @@ RNG_REPS = 100
 HBM_BYTES_PER_S = 3.35e12
 # the normal kernel alone (13): launches timed back to back
 NORMAL_REPS = 100
+# the material gradient kernel alone (14): (label, lanes, objects, the
+# parts needing a gradient); calls timed back to back
+MATERIAL_CASES = (
+    ("glass step, albedo", 2_073_600, 1, ("albedo",)),
+    ("glass step, all six parts", 2_073_600, 1,
+     material_grad_kernel.PART_NAMES),
+    ("Cornell step, albedo", 230_400, 8, ("albedo",)))
+MATERIAL_REPS = 100
 
 
 def log(*a):
@@ -2442,9 +2462,9 @@ def phase_bunny_scan_ad(dev):
     and on the subset, with the subset's bound. The whole step with K1c
     against the same step with the plain march on a BUNNY_CROP crop of
     the frame (rtol 1e-5: the march is bit-equal; the albedo's 1e-4, its
-    gradient adds with atomics); K1d's gradients against K1c's on the
-    crop under BUNNY_MXU_SPREAD of K1c's own sample-to-sample difference
-    there (norm over norm; on the whole frame printed beside K1c's
+    entries small differences of large sums); K1d's gradients against
+    K1c's on the crop under BUNNY_MXU_SPREAD of K1c's own sample-to-sample
+    difference there (norm over norm; on the whole frame printed beside K1c's
     spread)."""
     t_phase = time.perf_counter()
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2497,9 +2517,8 @@ def phase_bunny_scan_ad(dev):
     same = []
     for k in BUNNY_GRAD_FIELDS:
         a, b = kernel[k], plain[k]
-        # the albedo's gradient adds the crop's 32,400 lanes x 8 bounces
-        # through index_add_'s atomics, in an order that varies from run to
-        # run, and its entries are small differences of large sums
+        # the albedo's gradient adds the crop's 32,400 lanes x 8 bounces,
+        # and its entries are small differences of large sums
         rtol, floor = (1e-4, 1e-4) if k == "albedo" else (1e-5, 1e-6)
         torch.testing.assert_close(a, b, rtol=rtol,
                                    atol=floor * float(b.abs().max()))
@@ -3404,8 +3423,7 @@ def phase_mesh_train(dev, train_8e):
     one step of 8e's kind (materials only) on a 1 x 1 mesh and with
     ``mesh`` None, each against the step written out
     (:func:`written_out_step`) from the same start: the loss
-    bit-identical, the scene within rtol 1e-5 (``materials_at``'s
-    backward adds with atomics)."""
+    bit-identical, the scene within rtol 1e-5."""
     scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
                        cornell.full_camera(dev))
     cfg = grad_config(8)
@@ -3463,7 +3481,7 @@ def phase_mesh_train(dev, train_8e):
     log(f"[10e] a 1x1 mesh's step and mesh None's against the one-card step "
         f"written out, materials only: loss bit-identical, the scene within "
         f"rtol 1e-5 (" + ", ".join(
-            f"{k}: {'bit-identical' if v else 'not bit-identical: atomics'}"
+            f"{k}: {'bit-identical' if v else 'not bit-identical'}"
             for k, v in same.items()) + ")")
     return dict(s=s_step, s_8e=train_8e, launches=per,
                 held_calls=held["k1a"][0], one_by_one_same=same)
@@ -3769,8 +3787,7 @@ def phase_rng(dev):
     pixels and state bit-identical. Then one scan-AD step of the Cornell
     box at 8 bounces (8a's) with every draw recorded and held; its
     albedo gradient against the same step with the plain draws within
-    rtol 1e-5 (``index_add_``'s atomics). Returns what the kernels line
-    reads."""
+    rtol 1e-5. Returns what the kernels line reads."""
     out = {"alone": rng_alone(dev)}
     cfg = bunny_config()
     scene = bunny.animated_scene(bunny.glass_scene(dev),
@@ -3932,6 +3949,112 @@ def phase_normal(dev):
     return out
 
 
+def material_grad_alone(dev):
+    """The kernel alone (:data:`MATERIAL_CASES`) on field gradients drawn
+    about 1 and object ids drawn uniformly: back to back
+    (:func:`device_ms`), each call on one of four copies of the inputs
+    (above the 50 MB L2 at the glass step's lanes), against its byte
+    bound: the int32 index (4 B) and each needed column (4 B) read once at
+    3.35 TB/s. Beside it (CUDA events, median): the plain backward
+    (``material_grad_plain``, an ``index_add_`` a needed part) and, as
+    ``library_ms``, ``index_select``'s backward as the gather ran it
+    before: ``index_add_`` of the lanes' (N, 10) gradient, int64 ids, into
+    the zero table. Every entry within 1e-5 of a float64 sum's absolute
+    size."""
+    out = {}
+    mgk = material_grad_kernel
+    for label, n, n_obj, names in MATERIAL_CASES:
+        gen = torch.Generator(device=dev).manual_seed(n + len(names))
+        needs = [k in names for k in mgk.PART_NAMES]
+        copies = []
+        for _ in range(4):
+            idx = torch.randint(0, n_obj, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            grads = [1.0 + torch.randn((n, k) if k > 1 else (n,),
+                                       generator=gen, device=dev)
+                     if need else None
+                     for need, k in zip(needs, mgk.PART_WIDTHS)]
+            copies.append((idx, grads))
+        idx, grads = copies[0]
+        got = mgk.material_grad_cuda(idx, grads, needs, n_obj)
+        f64 = mgk.material_grad_plain(
+            idx, [g if g is None else g.double() for g in grads], needs,
+            n_obj, torch.float64)
+        size = mgk.material_grad_plain(
+            idx, [g if g is None else g.double().abs() for g in grads],
+            needs, n_obj, torch.float64)
+        worst = max(float(((g.double() - r).abs() / a).max())
+                    for g, r, a in zip(got, f64, size) if g is not None)
+        if not worst <= 1e-5:
+            raise AssertionError(f"[14] {label}: {worst:.3e} of the sum's "
+                                 f"absolute size from float64")
+        turn = itertools.cycle(copies)
+
+        def call():
+            i, g = next(turn)
+            return mgk.material_grad_cuda(i, g, needs, n_obj)
+
+        ms = device_ms(call, reps=MATERIAL_REPS)
+        plain_ms = median_ms(lambda: mgk.material_grad_plain(
+            idx, grads, needs, n_obj, torch.float32))
+        table = torch.randn((n, 10), generator=gen, device=dev)
+        ids64 = idx.to(torch.int64)
+        library_ms = median_ms(lambda: torch.zeros(
+            (n_obj, 10), device=dev).index_add_(0, ids64, table))
+        cols = sum(k for need, k in zip(needs, mgk.PART_WIDTHS) if need)
+        nbytes = n * (4 + 4 * cols)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        key = f"{label}, {n} lanes, {n_obj} objects"
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound, "bytes_per_lane": nbytes // n,
+                    "share": bound / ms, "err": worst}
+        log(f"[14] {key}: kernel {ms:.5f} ms back to back, plain "
+            f"{plain_ms:.4f} ms, index_select's backward {library_ms:.4f} "
+            f"ms; bound {bound:.5f} ms ({nbytes // n} B a lane), share "
+            f"{100 * bound / ms:.1f}%; {worst:.2e} of the absolute size "
+            f"from float64")
+        del copies, got, table, ids64
+    return out
+
+
+def step_routes(step):
+    """``step()`` with the material kernel's calls, ``materials_at``'s
+    routes and ``calc_normal``'s routes counted over it."""
+    material_grad_kernel.reset_launches()
+    before = (dict(scenelib.MATERIAL_ROUTES), dict(scenelib.NORMAL_ROUTES))
+    step()
+    torch.cuda.synchronize()
+    return {"material_grad_calls": material_grad_kernel.LAUNCHES[
+                "material_grad"],
+            "materials_at": {k: v - before[0][k] for k, v
+                             in scenelib.MATERIAL_ROUTES.items()},
+            "calc_normal": {k: v - before[1][k] for k, v
+                            in scenelib.NORMAL_ROUTES.items()}}
+
+
+def phase_material_grad(dev):
+    """14: the material gradient kernel. Alone
+    (:func:`material_grad_alone`). Then the kernel's calls and the routes
+    of one Cornell scan-AD step at 480x480 (the albedo) and one glass
+    step at 1920x1080 (the MLP, the matrix and the albedo), 8 bounces
+    each. Returns what the kernels line reads."""
+    out = {"alone": material_grad_alone(dev), "steps": {}}
+    scene, env, cam = (cornell.full_scene(dev), cornell.sky(dev),
+                       cornell.full_camera(dev))
+    gcfg = grad_config(8)
+    albedo_grad(scene, env, cam, gcfg, True, 4)
+    out["steps"]["Cornell scan-AD 480x480"] = step_routes(
+        lambda: albedo_grad(scene, env, cam, gcfg, True, 5))
+    scene, env = bunny.glass_scene(dev), bunny.glass_environment(device=dev)
+    cfg = bunny.glass_config().replace(max_raytrace=8)
+    cam = bunny.camera(cfg.width / cfg.height, dev)
+    out["steps"]["glass scan-AD 1920x1080"] = step_routes(
+        lambda: bunny_step(scene, env, cam, cfg, 5))
+    for label, r in out["steps"].items():
+        log(f"[14] {label}, 8 bounces: {r}")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     dev = phase_device()
@@ -3945,6 +4068,8 @@ def main():
     stamp("the RNG kernel (12)")
     normals = phase_normal(dev)
     stamp("the normal kernel (13)")
+    material_grads = phase_material_grad(dev)
+    stamp("the material gradient kernel (14)")
     err_2, k2_ms, k2_plain, k2_bound = phase_k2(dev)
     err_a, ka_ms, pa_ms, cornell_state = phase_kernel_vs_plain(dev)
     err_c, kc_ms, pc_ms, glass_state = phase_k1c_vs_plain(dev)
@@ -4229,6 +4354,22 @@ def main():
         "bound_by": "bytes", "share": {k: v["share"]
                                        for k, v in alone.items()},
         "library_ms": None})
+    # the material gather's backward (14): no TPU kernel (the JAX
+    # package's gather is a one-hot matmul)
+    alone = material_grads["alone"]
+    kernels.append({
+        "name": "material_grad", "route": "cuda",
+        "source": f"{CSRC}/material_grad.cu",
+        "replaces": "raytracingpbr_tpu/ops/scene.py materials_at (a one-hot "
+                    "matmul under XLA, no Pallas kernel)",
+        "launches": material_grads["steps"],
+        "max_rel_err": max(v["err"] for v in alone.values()),
+        "ms": {k: v["ms"] for k, v in alone.items()},
+        "plain_ms": {k: v["plain_ms"] for k, v in alone.items()},
+        "bound_ms": {k: v["bound_ms"] for k, v in alone.items()},
+        "bound_by": "bytes", "share": {k: v["share"]
+                                       for k, v in alone.items()},
+        "library_ms": {k: v["library_ms"] for k, v in alone.items()}})
     log(f"[end] the smoke ran {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

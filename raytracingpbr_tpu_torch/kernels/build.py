@@ -30,8 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 # march: K1a, K1b, K1c; march_mxu: K1d; speedlight: K2; rng: the counter RNG;
-# normal: the analytic surface normal
-SOURCES = ("march", "march_mxu", "speedlight", "rng", "normal")
+# normal: the analytic surface normal; material_grad: the material gather's
+# backward
+SOURCES = ("march", "march_mxu", "speedlight", "rng", "normal",
+           "material_grad")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -17,10 +17,11 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from ..core.device import resolve
 from ..core.math import rotate_euler, safe_norm
-from ..kernels import normal_kernel
+from ..kernels import material_grad_kernel, normal_kernel
 from . import sdf as sdflib
 from .sdf import SHAPE, BunnyMLP
 
@@ -340,21 +341,72 @@ class Materials(NamedTuple):
     ior: torch.Tensor           # (...,)
 
 
+# materials_at's calls by route: the plain gather (no part of the table
+# requires grad, or grad mode is off), or the Function whose backward sums
+# each object's lanes (kernels/material_grad_kernel)
+MATERIAL_ROUTES = {"plain_gather": 0, "function": 0}
+
+
 def materials_at(scene: Scene, idx: torch.Tensor) -> Materials:
     """All six material parameters of object ``idx`` per lane: one gather
     from the packed (n_obj, 10) table (the TPU's one-hot matmul is a GPU
-    gather). ``index_select``, not advanced indexing: the same values, and
-    its backward is an ``index_add_`` (atomic adds on the card), where the
-    advanced index's sorts the lanes and sums each object's hundreds of
-    thousands of duplicates in one warp (on the H100 over 90% of a
-    gradient step, PERF.md)."""
-    table = torch.cat([scene.albedo, scene.emission,
-                       scene.roughness[:, None], scene.metallic[:, None],
-                       scene.transmission[:, None], scene.ior[:, None]], -1)
+    gather, ``index_select``).
+
+    Where autograd records (grad mode on, and a part requires grad) the
+    gather is :class:`_MaterialGather`: the same values, a gradient only
+    for the parts that require one, each object's sum over its lanes (on
+    the card one call of ``csrc/material_grad.cu``, no atomics; on the CPU
+    ``index_add_``, ``index_select``'s backward's bits), and the fields of
+    the parts that need none marked non-differentiable. Otherwise it is
+    the plain gather."""
+    parts = (scene.albedo, scene.emission, scene.roughness, scene.metallic,
+             scene.transmission, scene.ior)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in parts):
+        MATERIAL_ROUTES["function"] += 1
+        return Materials(*_MaterialGather.apply(idx, *parts))
+    MATERIAL_ROUTES["plain_gather"] += 1
+    return _gather(parts, idx)
+
+
+def _gather(parts, idx: torch.Tensor) -> Materials:
+    """The six parts' rows of ``idx``: ``index_select`` on their (n_obj,
+    10) concatenation, each field a slice of the gathered rows."""
+    albedo, emission, roughness, metallic, transmission, ior = parts
+    table = torch.cat([albedo, emission, roughness[:, None],
+                       metallic[:, None], transmission[:, None],
+                       ior[:, None]], -1)
     m = table.index_select(0, idx.reshape(-1).to(torch.int64)).reshape(
         idx.shape + (10,))
     return Materials(m[..., 0:3], m[..., 3:6], m[..., 6], m[..., 7],
                      m[..., 8], m[..., 9])
+
+
+class _MaterialGather(torch.autograd.Function):
+    """:func:`_gather` with the material gradient's own backward. Inputs:
+    the lane indices and the six parts; outputs: the six fields. Saves the
+    index alone. The fields of parts that need no gradient are
+    non-differentiable, as gathering each part on its own would make
+    them, so no graph runs from them: with an albedo leaf alone, the
+    sampled direction (which reads the roughness) needs no gradient."""
+
+    @staticmethod
+    def forward(ctx, idx, *parts):
+        out = _gather(parts, idx)
+        needs = ctx.needs_input_grad[1:]
+        ctx.save_for_backward(idx)
+        ctx.num_objects = parts[0].shape[0]
+        ctx.dtype = parts[0].dtype
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(*(f for f, need in zip(out, needs)
+                                      if not need))
+        return tuple(out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        (idx,) = ctx.saved_tensors
+        return (None,) + material_grad_kernel.material_grad(
+            idx, grads, ctx.needs_input_grad[1:], ctx.num_objects, ctx.dtype)
 
 
 # calc_normal's calls by route: the CUDA kernel (csrc/normal.cu), or

@@ -11,8 +11,9 @@ gathered (``mesh.all_gather_rows``) and added in process order, the
 ranks' losses in mesh-rank order. Every process so holds the same scene
 after a step. The loss's bits do not depend on how the ranks are spread
 over processes; the gradient's last bits do (a batch adds its lanes'
-contributions in its own order), and on the card ``materials_at``'s
-backward adds with atomics, whose order varies from run to run.
+contributions in its own order). ``materials_at``'s backward sums each
+object's lanes in a fixed order (on the card ``csrc/material_grad.cu``,
+no atomics), so it repeats bit for bit from run to run.
 
 ``optax.adam`` is ``torch.optim.Adam`` over the scene's float buffers
 (``scene.params``), stepped in place; ``optax.cosine_decay_schedule`` is

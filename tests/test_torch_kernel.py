@@ -16,7 +16,10 @@ and an exact conversion: bit-equal to the plain draws. The analytic
 normal's kernel (``csrc/normal.cu``) follows autograd's backward
 operation for operation: bit-equal to autograd's first-order normal,
 zeros' signs included, and frames through it to frames through
-autograd's. K1c and K1d march
+autograd's. The material gradient's kernel (``csrc/material_grad.cu``)
+sums in another order than ``index_add_``'s atomics: within a stated
+float32 bound of a float64 sum and of the plain backward, and the same
+bits from run to run. K1c and K1d march
 on a persistent lane pool (``csrc/march_pool.cuh``)
 whose lane order follows atomics: their tests cover lane counts around one
 grid's slots, a skewed state, repeat runs, scenes whose bunny is not last or
@@ -34,6 +37,7 @@ import torch
 from raytracingpbr_tpu_torch.config import HitCriterion, OmegaPolicy
 from raytracingpbr_tpu_torch.core import rng as trng
 from raytracingpbr_tpu_torch.kernels import (fma_kernel, march_kernel,
+                                             material_grad_kernel,
                                              normal_kernel, rng_kernel)
 from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import camera as tcamera
@@ -1268,3 +1272,181 @@ def test_frames_through_the_normal_kernel_bit_equal(cuda_device, name,
     want = _frames_state(scene, env, cam, cfg, 3, cuda_device)
     for g, w in zip(got, want):
         assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+
+
+# --- the material gradient kernel (csrc/material_grad.cu) --------------------
+
+# case: (lanes, objects, parts needing a gradient, how the gradients come)
+MATERIAL_CASES = {
+    "glass_albedo": (2_073_600, 1, ("albedo",), "dense"),
+    "glass_all": (2_073_600, 1, material_grad_kernel.PART_NAMES, "dense"),
+    "cornell_albedo": (230_400, 8, ("albedo",), "dense"),
+    "cornell_all": (230_400, 8, material_grad_kernel.PART_NAMES, "int64"),
+    "ragged": (1_000_003, 7, ("albedo", "roughness"), "dense"),
+    "strided": (65_537, 8, ("albedo", "emission", "ior"), "strided"),
+    "undefined": (4_097, 3, ("albedo", "roughness"), "undefined"),
+    "many_objects": (100_003, 128, material_grad_kernel.PART_NAMES, "dense"),
+}
+
+
+def _material_inputs(case, device):
+    """The case's lanes (int32 object ids, or int64), field gradients
+    drawn about 1 (so an object's sum is of its absolute sum's size) in
+    the case's layout, and the parts' needs."""
+    n, n_obj, names, how = MATERIAL_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(n + n_obj)
+    idx = torch.randint(0, n_obj, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    if how == "int64":
+        idx = idx.to(torch.int64)
+    grads = []
+    for name, k in zip(material_grad_kernel.PART_NAMES,
+                       material_grad_kernel.PART_WIDTHS):
+        shape = (n, k) if k > 1 else (n,)
+        g = 1.0 + torch.randn(shape, generator=gen, device=device)
+        if how == "strided":
+            # every other row of a wider tensor; the ior's one value
+            # broadcast over the lanes
+            wide = 1.0 + torch.randn((2 * n, k + 1), generator=gen,
+                                     device=device)
+            g = (g[:1].expand(n) if name == "ior"
+                 else wide[::2, :k].reshape(shape))
+            assert not g.is_contiguous()
+        grads.append(None if how == "undefined" and name == "albedo"
+                     else g)
+    needs = [k in names for k in material_grad_kernel.PART_NAMES]
+    return idx, grads, needs, n_obj
+
+
+@pytest.mark.parametrize("case", sorted(MATERIAL_CASES))
+def test_material_grad_kernel_against_plain(cuda_device, case):
+    """The kernel's gradients against the plain backward (``index_add_``,
+    float atomics) and against a float64 sum, per (object, column) with A
+    that entry's sum of absolute values: within 1e-5 A of float64 (the
+    kernel adds each value at most about 40 times, 40 x 2^-24 = 2.4e-6),
+    and within 1e-5 A + 4 sqrt(n) 2^-24 A of the plain backward, whose
+    serial atomics in a random order drift by about sqrt(n) 2^-24 / 3.
+    An undefined gradient reads as zeros; parts not needed get None."""
+    idx, grads, needs, n_obj = _material_inputs(case, cuda_device)
+    got = material_grad_kernel.material_grad_cuda(idx, grads, needs, n_obj)
+    plain = material_grad_kernel.material_grad_plain(
+        idx, grads, needs, n_obj, torch.float32)
+    f64 = material_grad_kernel.material_grad_plain(
+        idx, [None if g is None else g.double() for g in grads], needs,
+        n_obj, torch.float64)
+    size = material_grad_kernel.material_grad_plain(
+        idx, [None if g is None else g.double().abs() for g in grads],
+        needs, n_obj, torch.float64)
+    n = idx.shape[0]
+    for g, p, r, a, need in zip(got, plain, f64, size, needs):
+        if not need:
+            assert g is None and p is None
+            continue
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        err = (g.double() - r).abs()
+        assert bool((err <= 1e-5 * a).all()), float((err / a).max())
+        tol = (1e-5 + 4 * n ** 0.5 * 2.0 ** -24) * a
+        assert bool(((g.double() - p.double()).abs() <= tol).all())
+    if case == "undefined":
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("case", ["glass_all", "cornell_albedo", "ragged"])
+def test_material_grad_kernel_repeats_bit_for_bit(cuda_device, case):
+    """No atomics: two calls on the same inputs give the same bits."""
+    idx, grads, needs, n_obj = _material_inputs(case, cuda_device)
+    a = material_grad_kernel.material_grad_cuda(idx, grads, needs, n_obj)
+    b = material_grad_kernel.material_grad_cuda(idx, grads, needs, n_obj)
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def test_material_grad_kernel_without_a_host_sync(cuda_device):
+    """The wrapper runs under ``set_sync_debug_mode("error")``, one call
+    counted each; an empty lane set gives zeros."""
+    idx, grads, needs, n_obj = _material_inputs("cornell_albedo",
+                                                cuda_device)
+    material_grad_kernel.material_grad_cuda(idx, grads, needs, n_obj)
+    torch.cuda.synchronize()
+    material_grad_kernel.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            material_grad_kernel.material_grad_cuda(idx, grads, needs, n_obj)
+        empty = material_grad_kernel.material_grad_cuda(
+            idx[:0], [g[:0] for g in grads], needs, n_obj)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert material_grad_kernel.LAUNCHES == {"material_grad": 4}
+    assert torch.equal(empty[0], torch.zeros((n_obj, 3), device=cuda_device))
+
+
+def test_material_grad_kernel_refuses(cuda_device):
+    """float64 gradients, a gradient of the wrong lane count, and more
+    objects than the kernel holds raise ValueError."""
+    idx, grads, needs, n_obj = _material_inputs("undefined", cuda_device)
+    bad = {"float64": [g if g is None else g.double() for g in grads],
+           "lanes": [g if g is None else g[1:] for g in grads]}
+    for gs in bad.values():
+        with pytest.raises(ValueError):
+            material_grad_kernel.material_grad_cuda(idx, gs, needs, n_obj)
+    with pytest.raises(ValueError, match="objects"):
+        material_grad_kernel.material_grad_cuda(idx, grads, needs, 129)
+
+
+def test_materials_at_backward_launches_once(cuda_device):
+    """One backward of ``materials_at`` with a leaf on the card: one
+    kernel call, whose gradient is the kernel's on the field gradients."""
+    scene = cornell.full_scene(cuda_device)
+    albedo = scene.albedo.clone().requires_grad_(True)
+    idx = torch.randint(0, 8, (230_400,), device=cuda_device,
+                        dtype=torch.int32)
+    material_grad_kernel.reset_launches()
+    mat = scenelib.materials_at(scene.replace(albedo=albedo), idx)
+    assert [f.requires_grad for f in mat] == [True] + [False] * 5
+    up = torch.randn((230_400, 3), device=cuda_device)
+    (g,) = torch.autograd.grad(mat.albedo, albedo, up)
+    assert material_grad_kernel.LAUNCHES == {"material_grad": 1}
+    want = material_grad_kernel.material_grad_cuda(
+        idx, [up] + [None] * 5, [True] + [False] * 5, 8)[0]
+    assert torch.equal(g, want)
+
+
+def test_cornell_grad_step_routes_on_the_card(cuda_device, monkeypatch):
+    """A Cornell scan-AD step at 64x64, 8 bounces, albedo leaf: 16
+    ``materials_at`` calls through the Function, 8 kernel calls (the
+    shading's gather; the emission's needs no backward), the 8 normals
+    on the normal kernel; the gradient within rtol 1e-5 of the same step
+    with the plain backward (``index_add_``) in the kernel's place."""
+    from raytracingpbr_tpu_torch.parallel import train as ptrain
+    scene = cornell.full_scene(cuda_device)
+    cfg = cornell.full_config().replace(resolution=(64, 64), max_raytrace=8)
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=cuda_device)
+
+    def step():
+        albedo = scene.albedo.clone().requires_grad_(True)
+        img = ptrain.render_pixels(scene.replace(albedo=albedo),
+                                   cornell.sky(cuda_device),
+                                   cornell.full_camera(cuda_device), pid,
+                                   cfg, 1)
+        return torch.autograd.grad(img.square().mean(), albedo)[0]
+
+    routes = (dict(scenelib.NORMAL_ROUTES), dict(scenelib.MATERIAL_ROUTES))
+    material_grad_kernel.reset_launches()
+    got = step()
+    normal = {k: v - routes[0][k] for k, v in scenelib.NORMAL_ROUTES.items()}
+    material = {k: v - routes[1][k]
+                for k, v in scenelib.MATERIAL_ROUTES.items()}
+    assert normal == {"kernel": 8, "autograd_first_order": 0,
+                      "autograd_second_order": 0}
+    assert material == {"plain_gather": 0, "function": 16}
+    assert material_grad_kernel.LAUNCHES == {"material_grad": 8}
+    monkeypatch.setattr(
+        material_grad_kernel, "material_grad_cuda",
+        lambda idx, grads, needs, n_obj: material_grad_kernel
+        .material_grad_plain(idx, grads, needs, n_obj, torch.float32))
+    want = step()
+    assert material_grad_kernel.LAUNCHES == {"material_grad": 8}
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-7 * float(want.abs().max()))

@@ -22,7 +22,10 @@ kernels in the same order, and the recorder's cost: the host time a unit
 with the spans on over that with them off. Each sub-window also counts
 ``ops/scene.calc_normal``'s calls a unit by route (``NORMAL_ROUTES``) and
 the normal kernel's launches a unit (``kernels/normal_kernel.LAUNCHES``),
-which show where the analytic normal kernel engages.
+which show where the analytic normal kernel engages, and
+``ops/scene.materials_at``'s calls a unit by route (``MATERIAL_ROUTES``)
+with the material gradient kernel's calls a unit
+(``kernels/material_grad_kernel.LAUNCHES``).
 
 One JSON line a sub-window and a last summary line on stdout; the whole
 record in ``--out``/``<workload>.json``. Prints the card's name and power
@@ -46,7 +49,7 @@ import torch
 from benchmark import harness, program
 from benchmark import trace as tracelib
 from benchmark.metrics import layers
-from raytracingpbr_tpu_torch.kernels import normal_kernel
+from raytracingpbr_tpu_torch.kernels import material_grad_kernel, normal_kernel
 from raytracingpbr_tpu_torch.ops import scene as scenelib
 from raytracingpbr_tpu_torch.utils import profiling
 
@@ -100,6 +103,8 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
     spans.rows = []
     routes = dict(scenelib.NORMAL_ROUTES)
     launched = normal_kernel.LAUNCHES["normal"]
+    materials = dict(scenelib.MATERIAL_ROUTES)
+    grads = material_grad_kernel.LAUNCHES["material_grad"]
     rec = profiling.recording() if record else contextlib.nullcontext([])
     with rec as rows, profiled(captured):
         spans.on = True
@@ -113,6 +118,11 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
                for k, v in scenelib.NORMAL_ROUTES.items()},
            "normal_launches_a_unit":
                (normal_kernel.LAUNCHES["normal"] - launched) / n,
+           "material_routes_a_unit": {
+               k: (v - materials[k]) / n
+               for k, v in scenelib.MATERIAL_ROUTES.items()},
+           "material_grad_calls_a_unit":
+               (material_grad_kernel.LAUNCHES["material_grad"] - grads) / n,
            "host_ms_a_unit":
            (captured["t1"] - captured["t0"]) * 1e3 / n,
            "offset_vs_first_sync_us": captured["offset_us"]
