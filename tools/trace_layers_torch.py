@@ -25,7 +25,9 @@ the normal kernel's launches a unit (``kernels/normal_kernel.LAUNCHES``),
 which show where the analytic normal kernel engages, and
 ``ops/scene.materials_at``'s calls a unit by route (``MATERIAL_ROUTES``)
 with the material gradient kernel's calls a unit
-(``kernels/material_grad_kernel.LAUNCHES``).
+(``kernels/material_grad_kernel.LAUNCHES``), and the march kernel's
+launches a unit by variant (``kernels/march_kernel.LAUNCHES``) beside the
+march kernels the trace holds a unit (``benchmark/trace.is_march``).
 
 One JSON line a sub-window and a last summary line on stdout; the whole
 record in ``--out``/``<workload>.json``. Prints the card's name and power
@@ -49,7 +51,9 @@ import torch
 from benchmark import harness, program
 from benchmark import trace as tracelib
 from benchmark.metrics import layers
-from raytracingpbr_tpu_torch.kernels import material_grad_kernel, normal_kernel
+from raytracingpbr_tpu_torch.kernels import (march_kernel,
+                                             material_grad_kernel,
+                                             normal_kernel)
 from raytracingpbr_tpu_torch.ops import scene as scenelib
 from raytracingpbr_tpu_torch.utils import profiling
 
@@ -105,6 +109,7 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
     launched = normal_kernel.LAUNCHES["normal"]
     materials = dict(scenelib.MATERIAL_ROUTES)
     grads = material_grad_kernel.LAUNCHES["material_grad"]
+    marches = dict(march_kernel.LAUNCHES)
     rec = profiling.recording() if record else contextlib.nullcontext([])
     with rec as rows, profiled(captured):
         spans.on = True
@@ -123,11 +128,15 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
                for k, v in scenelib.MATERIAL_ROUTES.items()},
            "material_grad_calls_a_unit":
                (material_grad_kernel.LAUNCHES["material_grad"] - grads) / n,
+           "march_launches_a_unit": {
+               k: (v - marches[k]) / n
+               for k, v in march_kernel.LAUNCHES.items()},
            "host_ms_a_unit":
            (captured["t1"] - captured["t0"]) * 1e3 / n,
            "offset_vs_first_sync_us": captured["offset_us"]
            - captured["first_sync_offset_us"],
            "kernels_a_unit": len(tr.kernels) / n,
+           "march_kernels_a_unit": len(tr.march_kernels()) / n,
            "kernel_names": [k[0] for k in sorted(tr.kernels,
                                                   key=lambda k: k[1])]}
     for name in READERS[ctx.cell.kind]:
