@@ -279,11 +279,14 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     with the plain draws bit-identical in pixels and state; one scan-AD
     step of the Cornell box at 8 bounces with every draw held, its albedo
     gradient within rtol 1e-5 of the plain draws' step.
-13. the analytic normal kernel (``csrc/normal.cu``): alone on the primary
-    hits of tokyo at 2880x1620 (4,665,600 lanes, K1b) and of the Cornell
-    box at 480x480 (230,400, K1a), back to back over four copies of the
-    inputs, against its byte bound, beside ``calc_normal_closed_plain``
-    and autograd's normal, every lane bit-equal to autograd's; one tokyo
+13. the normal kernel (``csrc/normal.cu``): alone on the primary hits of
+    tokyo at 2880x1620 (4,665,600 lanes, K1b) and of the Cornell box at
+    480x480 (230,400, K1a), and its bunny instance on those of the glass
+    bunny at 1920x1080 (2,073,600, K1c) and the metal bunny at 3840x2160
+    (8,294,400, K1d), back to back over four copies of the inputs,
+    against its byte bound (the bunny's: its FFMA bound where larger),
+    beside ``calc_normal_closed_plain`` and autograd's normal, every lane
+    bit-equal to autograd's; one tokyo
     frame at 2880x1620 and one Cornell frame at 480x480 with the kernel
     and with autograd's normal in its place, pixels and state
     bit-identical, the kernel's launches a frame.
@@ -359,6 +362,7 @@ from raytracingpbr_tpu_torch.ops import compact as compactlib
 from raytracingpbr_tpu_torch.ops import post as postlib
 from raytracingpbr_tpu_torch.ops import reproject as reprojectlib
 from raytracingpbr_tpu_torch.ops import scene as scenelib
+from raytracingpbr_tpu_torch.ops import sdf as sdflib
 from raytracingpbr_tpu_torch.ops.integrator import (render_frame,
                                                     render_image,
                                                     render_image_progressive)
@@ -462,8 +466,13 @@ BENCH_SHARE = 10
 RNG_LANES = (230_400, 2_073_600)
 RNG_REPS = 100
 HBM_BYTES_PER_S = 3.35e12
-# the normal kernel alone (13): launches timed back to back
+# the normal kernel alone (13): launches timed back to back; the bunny
+# instance's FFMA a lane inside the unit sphere (the MLP's forward 48 +
+# 256 + 256, its backward 256 + 256 + 48) and the card's float32 rate
+# outside the tensor cores (FLOP/s)
 NORMAL_REPS = 100
+BUNNY_NORMAL_FFMA = 1_120
+FP32_FLOPS = 67e12
 # the material gradient kernel alone (14): (label, lanes, objects, the
 # parts needing a gradient); calls timed back to back
 MATERIAL_CASES = (
@@ -3844,16 +3853,24 @@ def phase_rng(dev):
 
 def normal_hits(dev):
     """The primary hits of the tokyo frame at 2880x1620 (K1b, the full
-    512-trip march) and of the Cornell frame at 480x480 (K1a): {label:
-    (scene, index, position)}, missed lanes included (object 0 at a far
-    point)."""
+    512-trip march), of the Cornell frame at 480x480 (K1a), of the glass
+    bunny's at 1920x1080 (K1c) and of the metal bunny's at 3840x2160
+    (K1d): {label: (scene, index, position)}, missed lanes included
+    (object 0 at a far point)."""
     tokyo = bench.k1b_paths(dev)["tokyo 2880x1620"]
+    glass, metal = bunny_config(), metal_config().replace(bunny_mxu=True)
     out = {}
     for label, (scene, _, cam, cfg) in (
             ("tokyo 2880x1620", tokyo),
             ("Cornell 480x480", (cornell.full_scene(dev), None,
                                  cornell.full_camera(dev),
-                                 cornell.full_config()))):
+                                 cornell.full_config())),
+            ("glass bunny 1920x1080", (
+                bunny.glass_scene(dev), None,
+                bunny.camera(glass.width / glass.height, dev), glass)),
+            ("metal bunny 3840x2160", (
+                bunny.metal_scene(dev), None,
+                bunny.camera(metal.width / metal.height, dev), metal))):
         o, d = bench.utilization_rays(cfg, cam)
         res = march.march(scene, o, d, cfg)
         out[label] = (scene, res.index, res.position)
@@ -3868,14 +3885,32 @@ def same_normals(got, want) -> int:
     return int((~same.all(-1)).sum())
 
 
+def mlp_lanes(scene, idx, p) -> int:
+    """The lanes whose normal runs the bunny's MLP: the bunny's lanes
+    inside the unit sphere of its frame (``sdf.sd_bunny``'s test)."""
+    if not scene.has_bunny:
+        return 0
+    i = idx.reshape(-1).to(torch.int64)
+    pl = sdflib.to_object_space(p.reshape(-1, 3),
+                                scene.position.index_select(0, i),
+                                scene.matrix.index_select(0, i),
+                                scene.local_offset.index_select(0, i))
+    inside = ~(torch.linalg.vector_norm(pl, dim=-1) > 1.0)
+    bunny_id = scene.shape_types.index(SHAPE.BUNNY)
+    return int((inside & (i == bunny_id)).sum())
+
+
 def normal_alone(dev):
     """The kernel alone on each frame's primary hits (:func:`normal_hits`):
     back to back (:func:`device_ms`), each launch on one of four copies of
-    the inputs (above the 50 MB L2 at tokyo's lanes), against its byte
-    bound: the point (12 B) and the index (4 B) read once, the normal (12
-    B) written once, at 3.35 TB/s. ``calc_normal_closed_plain`` and
-    autograd's normal beside it (CUDA events, median); every lane of the
-    kernel's normal against autograd's."""
+    the inputs (above the 50 MB L2 at tokyo's lanes), against its bound:
+    the bytes, the point (12 B) and the index (4 B) read once, the normal
+    (12 B) written once, at 3.35 TB/s; on the bunny the larger of that and
+    the MLP's FFMA (:data:`BUNNY_NORMAL_FFMA` a lane that runs it,
+    :func:`mlp_lanes`) at 67 TFLOP/s, its 32 ``sincosf`` and 16 ``cosf``
+    a lane counted apart. ``calc_normal_closed_plain`` and autograd's normal
+    beside it (CUDA events, median); every lane of the kernel's normal
+    against autograd's."""
     out = {}
     for label, (scene, idx, p) in normal_hits(dev).items():
         n = idx.shape[0]
@@ -3894,14 +3929,23 @@ def normal_alone(dev):
         autograd_ms = median_ms(
             lambda: scenelib.calc_normal_autograd(scene, idx, p))
         nbytes = n * (12 + idx.element_size() + 12)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        mlp = mlp_lanes(scene, idx, p)
+        ffma_ms = 2 * BUNNY_NORMAL_FFMA * mlp / FP32_FLOPS * 1e3
+        bound = max(byte_ms, ffma_ms)
+        by = "operations" if ffma_ms > byte_ms else "bytes"
         key = f"{label} primaries, {n} lanes"
         out[key] = {"ms": ms, "plain_ms": plain_ms,
                     "autograd_ms": autograd_ms, "bound_ms": bound,
-                    "bytes_per_lane": nbytes // n, "share": bound / ms}
+                    "bound_by": by, "bytes_bound_ms": byte_ms,
+                    "ffma_bound_ms": ffma_ms, "mlp_lanes": mlp,
+                    "trig_calls": 48 * mlp, "bytes_per_lane": nbytes // n,
+                    "share": bound / ms}
         log(f"[13] {key}: kernel {ms:.5f} ms back to back, plain "
             f"{plain_ms:.4f} ms, autograd {autograd_ms:.4f} ms; bound "
-            f"{bound:.5f} ms ({nbytes // n} B a lane), share "
+            f"{bound:.5f} ms by {by} (bytes {byte_ms:.5f} ms, "
+            f"{nbytes // n} B a lane; FFMA {ffma_ms:.5f} ms, {mlp} lanes "
+            f"run the MLP, {48 * mlp} sincosf/cosf calls), share "
             f"{100 * bound / ms:.1f}%; every lane bit-equal to autograd's")
         del copies, got, autograd
     return out

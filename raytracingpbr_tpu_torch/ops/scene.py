@@ -424,16 +424,17 @@ def calc_normal(scene: Scene, idx: torch.Tensor,
     reads requires grad) it is :func:`calc_normal_autograd`'s second-order
     normal, differentiable in ``p`` and in the geometry as ``jax.grad``'s
     normal is. Otherwise it is first order, the forward render's numbers:
-    on float32 CUDA points of a scene without a BUNNY one launch of the
-    normal kernel (``kernels/normal_kernel``, bit-equal to autograd's),
-    else autograd's first-order normal."""
+    on float32 CUDA points one launch of the normal kernel
+    (``kernels/normal_kernel``, bit-equal to autograd's; on a scene with
+    the BUNNY its instance with the sin-MLP's gradient written out), else
+    (the CPU, other dtypes) autograd's first-order normal."""
     sdf_reads = (scene.position, scene.scale, scene.matrix,
                  scene.local_offset) + tuple(scene.bunny or ())
     if torch.is_grad_enabled() and (
             p.requires_grad or any(t.requires_grad for t in sdf_reads)):
         NORMAL_ROUTES["autograd_second_order"] += 1
         return calc_normal_autograd(scene, idx, p, create_graph=True)
-    if p.is_cuda and p.dtype == torch.float32 and not scene.has_bunny:
+    if p.is_cuda and p.dtype == torch.float32:
         NORMAL_ROUTES["kernel"] += 1
         return normal_kernel.calc_normal(scene, idx, p.detach())
     NORMAL_ROUTES["autograd_first_order"] += 1
@@ -524,13 +525,44 @@ def _grad_cone(x, y, z, s):
     return [gx, gd * s[:, 2] + -ge, gz]
 
 
+def _grad_mlp(p, mlp: BunnyMLP):
+    """``sdf.bunny_mlp_eval``'s gradient at ``p`` (N, 3) under an upstream
+    1, in autograd's backward formulas: ``mv``'s outer product gives
+    ``w_out``; ``sin``'s ``g * cos z``; the division's ``g / 1.4`` (on the
+    card a multiply by the float reciprocal, as the kernel's); the
+    residual adds; each ``mm``'s ``g @ W.t()``. The contractions are
+    matrix products, as autograd's are: the kernel's arithmetic wherever
+    the product sums one fused multiply-add a term in k's order, as this
+    CPU's does and cuBLAS's does at the frames' row counts
+    (``csrc/normal.cu``)."""
+    z0 = p @ mlp.w_in + mlp.b_in
+    f0 = torch.sin(z0)
+    z1 = f0 @ mlp.w_h1 + mlp.b_h1
+    z2 = (torch.sin(z1) + f0) @ mlp.w_h2 + mlp.b_h2
+    g_f = mlp.w_out.expand(z2.shape)
+    g_f = g_f + (g_f / 1.4 * torch.cos(z2)) @ mlp.w_h2.t()
+    g_f = g_f + (g_f * torch.cos(z1)) @ mlp.w_h1.t()
+    return ((g_f * torch.cos(z0)) @ mlp.w_in.t()).unbind(-1)
+
+
+def _grad_bunny(x, y, z, mlp: BunnyMLP):
+    """``sdf.sd_bunny``'s gradient: ``safe_norm``'s outside the unit
+    sphere, the MLP's inside (where autograd adds the other branch's exact
+    zero, which the world frame's ``+ 0`` makes irrelevant)."""
+    p = torch.stack([x, y, z], -1)
+    outside = safe_norm(p) > 1.0
+    g_out = _safe_norm_grad([x, y, z], torch.ones_like(x))
+    g_in = _grad_mlp(p, mlp)
+    return [torch.where(outside, a, b) for a, b in zip(g_out, g_in)]
+
+
 def calc_normal_closed_plain(scene: Scene, idx: torch.Tensor,
                              p: torch.Tensor) -> torch.Tensor:
     """``calc_normal``'s first-order normal in closed form: the lane's own
     object alone, its SDF's gradient written out as autograd's backward
     computes it, operation for operation (``csrc/normal.cu`` runs the
-    same arithmetic, a thread a lane). Bit-equal to ``calc_normal`` on the
-    analytic shapes (no BUNNY).
+    same arithmetic, a thread a lane). Bit-equal to ``calc_normal``, the
+    bunny's sin-MLP included (:func:`_grad_bunny`).
 
     Autograd's order, where it decides the bits: ``abs`` passes
     ``g * sign(p)``; ``maximum``/``minimum`` give half the gradient to
@@ -538,7 +570,7 @@ def calc_normal_closed_plain(scene: Scene, idx: torch.Tensor,
     ``safe_norm``'s square sums two equal terms; the rotation's transpose
     accumulates rows 2, 1, 0 into each world component, and every other
     object's gradient is +0, so an exact zero is +0; at a point not finite
-    another curved object's is NaN. The normalisation is
+    another curved object's (the bunny's too) is NaN. The normalisation is
     ``torch.linalg.vector_norm``'s (the kernel follows the card's
     reduction order)."""
     shape = p.shape
@@ -558,14 +590,16 @@ def calc_normal_closed_plain(scene: Scene, idx: torch.Tensor,
             (SHAPE.BOX, lambda: _grad_box(x, y, z, s)),
             (SHAPE.CYLINDER, lambda: _grad_cylinder(x, y, z, s)),
             (SHAPE.CONE, lambda: _grad_cone(x, y, z, s)),
-            (SHAPE.PLANE, lambda: [zero, one, zero])):
+            (SHAPE.PLANE, lambda: [zero, one, zero]),
+            (SHAPE.BUNNY, lambda: _grad_bunny(x, y, z, scene.bunny))):
         if shape_id in scene.shape_types:
             sel = t == int(shape_id)
             g = [torch.where(sel, a, b) for a, b in zip(grads(), g)]
     world = [((g[2] * m[:, 2, c] + g[1] * m[:, 1, c]) + g[0] * m[:, 0, c])
              + 0.0 for c in range(3)]
     n = torch.stack(world, -1)
-    curved = ((t >= int(SHAPE.SPHERE)) & (t <= int(SHAPE.CONE))).to(t.dtype)
+    curved = (((t >= int(SHAPE.SPHERE)) & (t <= int(SHAPE.CONE)))
+              | (t == int(SHAPE.BUNNY))).to(t.dtype)
     lost = ~torch.isfinite(pf).all(-1) & (
         normal_kernel.num_curved(scene) > curved)
     n = torch.where(lost[:, None], torch.nan, n)

@@ -15,8 +15,9 @@ rounds once where the plain version's multiply and add round twice: rtol
 and an exact conversion: bit-equal to the plain draws. The analytic
 normal's kernel (``csrc/normal.cu``) follows autograd's backward
 operation for operation: bit-equal to autograd's first-order normal,
-zeros' signs included, and frames through it to frames through
-autograd's. The material gradient's kernel (``csrc/material_grad.cu``)
+zeros' signs included, its bunny instance too (the sin-MLP's forward
+and backward written out, each contraction rounded as cuBLAS's float32
+GEMM sums it), and frames through it to frames through autograd's. The material gradient's kernel (``csrc/material_grad.cu``)
 sums in another order than ``index_add_``'s atomics: within a stated
 float32 bound of a float64 sum and of the plain backward, and the same
 bits from run to run. K1c and K1d march
@@ -51,7 +52,8 @@ from raytracingpbr_tpu_torch.utils import speedlight
 
 from .torch_helpers import (NORMAL_POSES,  # noqa: F401
                             assert_normals_bit_equal, bunny_beside_shapes,
-                            chained_resumes, cuda_device, many_objects_scene,
+                            bunny_normal_points, chained_resumes,
+                            cuda_device, many_objects_scene,
                             mixed_analytic_scene, normal_points,
                             normal_scene, random_rays)
 
@@ -1172,12 +1174,14 @@ NORMAL_SCENES = {"cornell": cornell.full_scene, "tokyo": demo.scene_demo_scene,
 
 
 def _normal_both(scene, idx, p):
-    """The kernel through ``calc_normal`` (one launch, the kernel route)
-    and autograd's first-order normal on the same lanes."""
+    """The kernel through ``calc_normal`` (one launch of the scene's
+    instance, the kernel route) and autograd's first-order normal on the
+    same lanes."""
+    key = "normal_bunny" if scene.has_bunny else "normal"
     before = dict(normal_kernel.LAUNCHES)
     routes = dict(scenelib.NORMAL_ROUTES)
     got = scenelib.calc_normal(scene, idx, p)
-    assert normal_kernel.LAUNCHES == {"normal": before["normal"] + 1}
+    assert normal_kernel.LAUNCHES == before | {key: before[key] + 1}
     assert scenelib.NORMAL_ROUTES == routes | {"kernel": routes["kernel"] + 1}
     return got, scenelib.calc_normal_autograd(scene, idx, p)
 
@@ -1219,24 +1223,136 @@ def test_normal_kernel_on_hit_points(cuda_device, name):
 
 def test_normal_kernel_without_a_host_sync(cuda_device):
     """``calc_normal`` on the kernel route runs under
-    ``set_sync_debug_mode("error")`` on an animated scene (``animate``'s
-    offset a broadcast view read in place), one launch a call."""
-    scene = scenelib.animate(normal_scene("general", 0.03, cuda_device),
-                             torch.tensor(12, device=cuda_device))
-    idx, p = normal_points(scene, 1 << 16, seed=2)
-    idx, p = idx.to(cuda_device), p.to(cuda_device)
-    scenelib.calc_normal(scene, idx, p)
+    ``set_sync_debug_mode("error")`` on animated scenes (``animate``'s
+    offset a broadcast view read in place), the analytic shapes' and the
+    bunny beside them, one launch of the scene's instance a call."""
+    frame = torch.tensor(12, device=cuda_device)
+    scenes = [scenelib.animate(normal_scene("general", 0.03, cuda_device),
+                               frame),
+              scenelib.animate(bunny_beside_shapes(cuda_device), frame)]
+    lanes = []
+    for scene in scenes:
+        idx, p = normal_points(scene, 1 << 16, seed=2)
+        lanes.append((idx.to(cuda_device), p.to(cuda_device)))
+        scenelib.calc_normal(scene, *lanes[-1])
     torch.cuda.synchronize()
     normal_kernel.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        outs = [scenelib.calc_normal(scene, idx, p) for _ in range(3)]
+        outs = [[scenelib.calc_normal(scene, *ip) for _ in range(3)]
+                for scene, ip in zip(scenes, lanes)]
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert normal_kernel.LAUNCHES == {"normal": 3}
-    want = scenelib.calc_normal_autograd(scene, idx, p)
-    for got in outs:
-        assert_normals_bit_equal(got, want)
+    assert normal_kernel.LAUNCHES == {"normal": 3, "normal_bunny": 3}
+    for scene, ip, got3 in zip(scenes, lanes, outs):
+        want = scenelib.calc_normal_autograd(scene, *ip)
+        for got in got3:
+            assert_normals_bit_equal(got, want)
+
+
+# case: (scene, random lanes about its objects)
+BUNNY_NORMAL_CASES = {
+    "glass_reference_scale": (bunny.glass_scene, 8_192),
+    "glass_lanes": (bunny.glass_scene, 2_073_600),
+    "metal_lanes": (bunny.metal_scene, 8_294_400),
+    "beside_shapes": (bunny_beside_shapes, 1 << 18),
+    "animated": (lambda d: scenelib.animate(bunny.glass_scene(d),
+                                            torch.tensor(37, device=d)),
+                 1 << 18),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUNNY_NORMAL_CASES))
+def test_normal_bunny_kernel_bit_equal_to_autograd(cuda_device, case):
+    """The bunny instance against autograd's first-order normal through
+    the MLP's float32 matrix products (cuBLAS, TF32 off): the benchmark
+    reference's 8,192 checked pixels, the glass frame's 2,073,600 and the
+    metal frame's 8,294,400 lanes, the bunny beside the analytic shapes,
+    ``animate``'s offset view; the bunny's centre, the unit sphere and
+    points outside it (``safe_norm``'s gradient), far missed lanes, NaN
+    and infinite points; int32 and int64 indices: bit for bit, zeros'
+    signs too."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    make, n = BUNNY_NORMAL_CASES[case]
+    scene = make(cuda_device)
+    idx, p = bunny_normal_points(scene, n, seed=n % 97)
+    idx, p = idx.to(cuda_device), p.to(cuda_device)
+    for ids in (idx, idx.to(torch.int64)):
+        assert_normals_bit_equal(*_normal_both(scene, ids, p))
+
+
+@pytest.mark.parametrize("lanes", [1_000, 4_096, 1 << 20])
+def test_normal_bunny_kernel_does_not_follow_the_row_count(cuda_device,
+                                                          lanes):
+    """At these row counts cuBLAS sums some of the MLP's 16-term
+    contractions in another order than one fused multiply-add a term in
+    k's order (a few ulps in some lanes), so autograd's normal of a lane
+    there follows the batch it is in. The kernel's does not: at each of
+    these counts it equals autograd's normal of the same lanes in a batch
+    of 2,073,600 more, where cuBLAS sums in k's order."""
+    scene = bunny.glass_scene(cuda_device)
+    idx, p = bunny_normal_points(scene, lanes, seed=lanes % 97)
+    idx, p = idx.to(cuda_device), p.to(cuda_device)
+    rest = 2_073_600
+    big_p = torch.cat([p, torch.zeros((rest, 3), device=cuda_device)])
+    big_idx = torch.cat([idx, idx.new_zeros(rest)])
+    want = scenelib.calc_normal_autograd(scene, big_idx, big_p)
+    got = scenelib.calc_normal(scene, idx, p)
+    assert_normals_bit_equal(got, want[:idx.shape[0]])
+    assert_normals_bit_equal(scenelib.calc_normal(scene, big_idx, big_p),
+                             want)
+
+
+def _frame_normal_calls(scene, env, cam, cfg, device, monkeypatch):
+    """The (index, position) of every ``calc_normal`` call in a frame
+    rendered after one frame from a fresh state, through the kernel, and
+    the launches of the bunny instance over it."""
+    from raytracingpbr_tpu_torch.core.types import make_frame_state
+    from raytracingpbr_tpu_torch.ops.integrator import render_frame
+    state = make_frame_state(cfg.num_pixels, device)
+    _, state = render_frame(scene, env, cam, state, cfg)
+    calls, normal = [], scenelib.calc_normal
+
+    def record(scene, index, position):
+        calls.append((index.clone(), position.clone()))
+        return normal(scene, index, position)
+
+    monkeypatch.setattr(scenelib, "calc_normal", record)
+    before = dict(normal_kernel.LAUNCHES)
+    routes = dict(scenelib.NORMAL_ROUTES)
+    render_frame(scene, env, cam, state, cfg)
+    monkeypatch.undo()
+    launches = {k: v - before[k] for k, v in normal_kernel.LAUNCHES.items()}
+    routes = {k: v - routes[k] for k, v in scenelib.NORMAL_ROUTES.items()}
+    return calls, launches, routes
+
+
+@pytest.mark.parametrize("name", ["glass", "metal"])
+def test_normal_bunny_kernel_on_frame_hits(cuda_device, name, monkeypatch):
+    """The points and indices that a real wavefront frame hands the
+    normal (the glass frame at 1920x1080 through K1c, the metal one at
+    3840x2160 through K1d, 4 steps of one sample, the second frame from a
+    fresh state): each step's call through the bunny instance, bit-equal
+    to autograd's normal, int32 as the march gives them and int64; one
+    launch a step, and none of autograd's first-order normal."""
+    if name == "glass":
+        scene, cfg = (bunny.glass_scene(cuda_device),
+                      bunny.glass_config().replace(samples_per_pixel=4))
+    else:
+        scene, cfg = (bunny.metal_scene(cuda_device),
+                      bunny.metal_config().replace(bunny_mxu=True))
+    env = bunny.glass_environment(device=cuda_device)
+    cam = bunny.camera(cfg.width / cfg.height, cuda_device)
+    calls, launches, routes = _frame_normal_calls(scene, env, cam, cfg,
+                                                  cuda_device, monkeypatch)
+    assert len(calls) == 4
+    assert launches == {"normal": 0, "normal_bunny": 4}
+    assert routes == {"kernel": 4, "autograd_first_order": 0,
+                      "autograd_second_order": 0}
+    for idx, p in calls:
+        assert idx.shape == (cfg.num_pixels,) and idx.dtype == torch.int32
+        for ids in (idx, idx.to(torch.int64)):
+            assert_normals_bit_equal(*_normal_both(scene, ids, p))
 
 
 def _frames_state(scene, env, cam, cfg, frames, device):
@@ -1250,12 +1366,19 @@ def _frames_state(scene, env, cam, cfg, frames, device):
             state.hit_t)
 
 
-@pytest.mark.parametrize("name", ["tokyo", "cornell"])
+@pytest.mark.parametrize("name", ["tokyo", "cornell", "glass"])
 def test_frames_through_the_normal_kernel_bit_equal(cuda_device, name,
                                                     monkeypatch):
-    """Three wavefront frames with the normal kernel and with autograd's
-    normal in its place: every pixel, accumulator and ray bit for bit."""
-    if name == "tokyo":
+    """Three wavefront frames with the normal kernel (the glass bunny's
+    through its bunny instance) and with autograd's normal in its place:
+    every pixel, accumulator and ray bit for bit."""
+    if name == "glass":
+        scene, env = (bunny.glass_scene(cuda_device),
+                      bunny.glass_environment(device=cuda_device))
+        cfg = bunny.glass_config().replace(resolution=(320, 180),
+                                           samples_per_pixel=2)
+        cam = bunny.camera(cfg.width / cfg.height, cuda_device)
+    elif name == "tokyo":
         scene, env = (demo.scene_demo_scene(cuda_device),
                       demo.tokyo_environment(device=cuda_device))
         cfg = demo.tokyo_config().replace(resolution=(320, 180))
@@ -1266,7 +1389,8 @@ def test_frames_through_the_normal_kernel_bit_equal(cuda_device, name,
         cam = cornell.full_camera(cuda_device)
     normal_kernel.reset_launches()
     got = _frames_state(scene, env, cam, cfg, 3, cuda_device)
-    assert normal_kernel.LAUNCHES["normal"] > 0
+    assert normal_kernel.LAUNCHES[
+        "normal_bunny" if scene.has_bunny else "normal"] > 0
     monkeypatch.setattr(normal_kernel, "calc_normal",
                         scenelib.calc_normal_autograd)
     want = _frames_state(scene, env, cam, cfg, 3, cuda_device)

@@ -1,9 +1,9 @@
-"""The analytic surface normal on the CPU: ``calc_normal_closed_plain``
-(the normal kernel's arithmetic, ``csrc/normal.cu``, written in PyTorch)
-bit for bit against autograd's first-order ``calc_normal``, and
-``calc_normal``'s dispatch: the CPU, float64, the bunny and the
-second-order branch keep autograd. The kernel itself runs on the card
-(``tests/test_torch_kernel.py``)."""
+"""The surface normal on the CPU: ``calc_normal_closed_plain`` (the
+normal kernel's arithmetic, ``csrc/normal.cu``, written in PyTorch) bit
+for bit against autograd's first-order ``calc_normal``, on the analytic
+shapes and on the bunny's sin-MLP, and ``calc_normal``'s dispatch: the
+CPU, float64 and the second-order branch keep autograd. The kernel itself
+runs on the card (``tests/test_torch_kernel.py``)."""
 import re
 from pathlib import Path
 
@@ -12,14 +12,14 @@ import pytest
 import torch
 
 from raytracingpbr_tpu_torch.kernels import normal_kernel
-from raytracingpbr_tpu_torch.models import cornell, demo
+from raytracingpbr_tpu_torch.models import bunny, cornell, demo
 from raytracingpbr_tpu_torch.ops import scene as tscene
 from raytracingpbr_tpu_torch.ops.sdf import SHAPE
 
 from .torch_helpers import (CPU, NORMAL_POSES, assert_normals_bit_equal,
-                            bunny_beside_shapes, many_objects_scene,
-                            mixed_analytic_scene, normal_points,
-                            normal_scene)
+                            bunny_beside_shapes, bunny_normal_points,
+                            many_objects_scene, mixed_analytic_scene,
+                            normal_points, normal_scene)
 
 SCENES = {"cornell": cornell.full_scene, "tokyo": demo.scene_demo_scene,
           "engine": demo.engine_scene, "mixed": mixed_analytic_scene,
@@ -62,6 +62,46 @@ def test_closed_plain_bit_equal_on_model_scenes(name):
     assert_normals_bit_equal(got, tscene.calc_normal_autograd(scene, idx, p))
 
 
+BUNNY_SCENES = {
+    "glass": bunny.glass_scene, "metal": bunny.metal_scene,
+    "beside_shapes": bunny_beside_shapes,
+    "animated": lambda d: tscene.animate(bunny.glass_scene(d), 37),
+    "beside_shapes_animated": lambda d: tscene.animate(
+        bunny_beside_shapes(d), 70)}
+
+
+@pytest.mark.parametrize("name", sorted(BUNNY_SCENES))
+def test_closed_plain_bit_equal_on_bunny_scenes(name):
+    """The bunny's sin-MLP gradient (``_grad_bunny``) and the analytic
+    shapes beside it, animated (``local_offset`` a broadcast view) or not:
+    the MLP's lanes inside the unit sphere, its centre and the sphere
+    itself (r = 1 stays on the MLP), ``safe_norm``'s lanes outside, far
+    missed lanes, NaN and infinite points (NaN wherever a curved object,
+    the bunny among them, adds NaN), int32 and int64 indices, bit for bit.
+    This CPU's matrix product sums each contraction in k's order with one
+    fused multiply-add a term, as the kernel does, so both sides'
+    products agree to the bit."""
+    scene = BUNNY_SCENES[name](CPU)
+    idx, p = bunny_normal_points(scene, 4096, seed=5)
+    for ids in (idx, idx.to(torch.int64)):
+        want = tscene.calc_normal_autograd(scene, ids, p)
+        assert_normals_bit_equal(
+            tscene.calc_normal_closed_plain(scene, ids, p), want)
+    bunny_lanes = idx == scene.shape_types.index(SHAPE.BUNNY)
+    r = torch.linalg.vector_norm(p - scene.position[-1], dim=-1)
+    assert bool((bunny_lanes & (r < 1)).any())
+    assert bool((bunny_lanes & (r > 1) & torch.isfinite(r)).any())
+    assert bool(torch.isnan(want[bunny_lanes]).any())
+    assert not bool(torch.isnan(want[bunny_lanes & (r < 1)]).any())
+
+
+def test_num_curved_counts_the_bunny():
+    """The bunny's gradient reads the point, and at a point not finite
+    it is NaN, so it counts among the curved objects."""
+    assert normal_kernel.num_curved(bunny.glass_scene(CPU)) == 1
+    assert normal_kernel.num_curved(bunny_beside_shapes(CPU)) == 5
+
+
 def _p_requires_grad(scene, idx, p):
     return scene, p.clone().requires_grad_(True)
 
@@ -102,8 +142,8 @@ def test_calc_normal_routes_keep_autograd_off_the_card(case):
 
 
 def test_calc_normal_bunny_scene_keeps_autograd():
-    """A scene with the bunny takes autograd's first-order normal, the
-    analytic objects beside it too."""
+    """On the CPU a scene with the bunny takes autograd's first-order
+    normal, the analytic objects beside it too."""
     scene = bunny_beside_shapes(CPU)
     rng = np.random.default_rng(0)
     idx = torch.as_tensor(rng.integers(0, scene.num_objects, 512),
@@ -132,8 +172,7 @@ def _cu_shapes():
     return {m[1]: int(m[2]) for m in re.finditer(r"(\w+) = (\d+)", enum)}
 
 
-@pytest.mark.parametrize("shape", [s for s in SHAPE if s != SHAPE.BUNNY],
-                         ids=lambda s: s.name)
+@pytest.mark.parametrize("shape", list(SHAPE), ids=lambda s: s.name)
 def test_kernel_shape_ids_are_the_scenes(shape):
     """``csrc/normal.cu``'s shape ids, read from the source, equal
     ``ops/sdf.SHAPE``'s, and :func:`normal_kernel.num_curved` counts the

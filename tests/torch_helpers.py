@@ -166,7 +166,8 @@ def _normal_lattice(shape, s):
     corners on, inside and outside its surface (``amax`` ties, ``|p| = 0``
     planes); a cylinder's rim, wall, caps and axis; a cone's apex, axis
     and the point where its two planes tie; a sphere's centre (the
-    ``safe_norm`` at 0) and axes."""
+    ``safe_norm`` at 0) and axes; the bunny's centre and axes about the
+    unit sphere."""
     from raytracingpbr_tpu_torch.ops.sdf import SHAPE as S
     t = np.array([-0.125, 0.0, 0.0625])
     sign = np.array([-1.0, 1.0])
@@ -199,6 +200,11 @@ def _normal_lattice(shape, s):
     elif shape == S.SPHERE:
         pts += [[0.0, 0.0, 0.0]] + [list(v * s[0] * k) for v in np.eye(3)
                                     for k in (-1.5, 1.0, 0.5)]
+    elif shape == S.BUNNY:
+        # the centre (safe_norm at 0), the axes inside, on and outside the
+        # unit sphere where sd_bunny leaves the MLP (r > 1 only outside)
+        pts += [[0.0, 0.0, 0.0]] + [list(v * k) for v in np.eye(3)
+                                    for k in (-1.25, -1.0, 0.5, 1.0, 1.25)]
     return np.array(pts, dtype=np.float64).reshape(-1, 3)
 
 
@@ -247,6 +253,18 @@ def normal_points(scene, n_random: int, seed: int = 0):
     pts += [far, np.full((2, 3), np.nan)]
     return (torch.as_tensor(np.array(idx), dtype=torch.int32),
             torch.as_tensor(np.concatenate(pts).astype(np.float32)))
+
+
+def bunny_normal_points(scene, n_random: int, seed: int = 0):
+    """:func:`normal_points` of a scene with the bunny, and three points
+    with an infinite coordinate for each object."""
+    idx, p = normal_points(scene, n_random, seed)
+    inf = float("inf")
+    rows = torch.tensor([[inf, 0.0, 0.0], [0.0, -inf, 0.5], [inf, inf, inf]])
+    k = scene.num_objects
+    return (torch.cat([idx, torch.arange(k, dtype=idx.dtype)
+                       .repeat_interleave(3)]),
+            torch.cat([p, rows.repeat(k, 1)]))
 
 
 def assert_normals_bit_equal(got: torch.Tensor, want: torch.Tensor):

@@ -21,8 +21,9 @@ beside them. Each pair also says whether both halves launched the same
 kernels in the same order, and the recorder's cost: the host time a unit
 with the spans on over that with them off. Each sub-window also counts
 ``ops/scene.calc_normal``'s calls a unit by route (``NORMAL_ROUTES``) and
-the normal kernel's launches a unit (``kernels/normal_kernel.LAUNCHES``),
-which show where the analytic normal kernel engages, and
+the normal kernel's launches a unit by instance
+(``kernels/normal_kernel.LAUNCHES``), which show where the normal kernel
+engages, and
 ``ops/scene.materials_at``'s calls a unit by route (``MATERIAL_ROUTES``)
 with the material gradient kernel's calls a unit
 (``kernels/material_grad_kernel.LAUNCHES``), and the march kernel's
@@ -106,7 +107,7 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
     captured = {}
     spans.rows = []
     routes = dict(scenelib.NORMAL_ROUTES)
-    launched = normal_kernel.LAUNCHES["normal"]
+    launched = dict(normal_kernel.LAUNCHES)
     materials = dict(scenelib.MATERIAL_ROUTES)
     grads = material_grad_kernel.LAUNCHES["material_grad"]
     marches = dict(march_kernel.LAUNCHES)
@@ -121,8 +122,9 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
            "normal_routes_a_unit": {
                k: (v - routes[k]) / n
                for k, v in scenelib.NORMAL_ROUTES.items()},
-           "normal_launches_a_unit":
-               (normal_kernel.LAUNCHES["normal"] - launched) / n,
+           "normal_launches_a_unit": {
+               k: (v - launched[k]) / n
+               for k, v in normal_kernel.LAUNCHES.items()},
            "material_routes_a_unit": {
                k: (v - materials[k]) / n
                for k, v in scenelib.MATERIAL_ROUTES.items()},
