@@ -525,11 +525,26 @@ def render_image_progressive(scene: Scene, env: Environment, cam: Camera,
 EXIT_CHECK_EVERY = 1
 _MASK = 0xFFFFFFFF
 
+# megakernel_trace's live lanes, counted while the program's spans are
+# recorded (``utils/profiling.recording``): one list a call (scan-AD's and
+# the forward's; replay has a loop of its own), appended in call order, of
+# the lanes still alive at each exit check (after bounce 0, 1, ... with
+# EXIT_CHECK_EVERY 1: the lanes the next bounce marches). Nothing is
+# counted while recording is off.
+LIVE_LANES: list[list[int]] = []
 
-def any_alive(alive: torch.Tensor) -> bool:
-    """Whether any lane is alive: a host sync, in the ``sync`` span."""
+
+def any_alive(alive: torch.Tensor, live: Optional[list] = None) -> bool:
+    """Whether any lane is alive: a host sync, in the ``sync`` span. With
+    ``live`` it counts the lanes in place of asking for any (one reduction
+    and the same one sync; on the card the sum first casts the mask to
+    int64, one launch more) and appends the count to ``live``."""
     with profiling.span("sync"):
-        return bool(alive.any())
+        if live is None:
+            return bool(alive.any())
+        n = int(alive.sum())
+        live.append(n)
+        return n > 0
 
 
 class TraceResult(NamedTuple):
@@ -582,7 +597,8 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
     counter is ``sample_idx * cfg.max_raytrace + i`` modulo 2**32, as the
     reference's uint32 arithmetic wraps. The loop asks whether any lane is
     alive every :data:`EXIT_CHECK_EVERY` bounces; the result does not
-    depend on it."""
+    depend on it. While the program's spans are recorded the checks count
+    the live lanes into :data:`LIVE_LANES`."""
     if reflect_kill is None:
         reflect_kill = roughness_fresnel and not differentiable
     if differentiable == "replay":
@@ -602,6 +618,10 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
                        device=origin.device)
     bounces = torch.zeros(origin.shape[:1], dtype=torch.int32,
                           device=origin.device)
+    live = None
+    if profiling.is_recording():
+        live = []
+        LIVE_LANES.append(live)
     if cfg.env_sampling:
         # banked NEE radiance, and the weight on the next sky lookup
         radiance = torch.zeros_like(color)
@@ -701,7 +721,7 @@ def megakernel_trace(scene: Scene, env: Environment, rays: Rays,
                 bounces = bounces + on.to(torch.int32)
                 alive = on & ~stop_hit
                 i += 1
-                if i % EXIT_CHECK_EVERY == 0 and not any_alive(alive):
+                if i % EXIT_CHECK_EVERY == 0 and not any_alive(alive, live):
                     break
     if cfg.env_sampling:
         color = color + radiance

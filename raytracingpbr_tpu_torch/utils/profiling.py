@@ -101,6 +101,11 @@ class _Span:
         return False
 
 
+def is_recording() -> bool:
+    """Whether a :func:`recording` section is open."""
+    return _rows is not None
+
+
 def span(name: str):
     """A context manager around the section ``name``: a row of the open
     recording when it exits, nothing while recording is off."""

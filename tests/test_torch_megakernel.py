@@ -12,6 +12,10 @@
   counter ``sample_idx * max_raytrace + i`` past 2**32 included;
 * asking whether a lane is alive every bounce or every k bounces gives the
   same output bit for bit;
+* while the program's spans are recorded, the exit checks count the live
+  lanes into ``LIVE_LANES``, equal to the plain count of ``alive``; the
+  image and the operations run are the same recorded or not, but for each
+  check's reduction (``sum`` for ``any``);
 * ``cfg.env_sampling`` without a baked table raises JAX's ValueError;
   the gradient modes give the forward's numbers, ``cfg.reprojection``
   raises, and the ``march`` and ``reflect_kill`` defaults are the
@@ -290,3 +294,91 @@ def test_env_sampling_requires_baked_table():
                                                  u[0], u[1]), u[2], u[3])
     with pytest.raises(ValueError, match="alias"):
         tinteg.megakernel_trace(sun_scene(), sun_env(), rays, pid, 0, cfg)
+
+
+def _cornell_rays(cfg, cam, sample):
+    from raytracingpbr_tpu_torch.ops import camera as tcamera
+    pid = torch.arange(cfg.num_pixels, dtype=torch.int64)
+    u = trng.uniform4(pid, sample, tinteg._S_CAMERA, cfg.seed)
+    return pid, tcamera.get_ray(cam, tcamera.pixel_uv(
+        pid, cfg.width, cfg.height, u[0], u[1]), u[2], u[3])
+
+
+def test_live_lanes_counted_while_recording(monkeypatch):
+    """While the program's spans are recorded, each exit check of
+    ``megakernel_trace`` appends the count of ``alive`` to its call's list
+    in ``LIVE_LANES``: equal to the plain count of the tensor checked, at
+    every bounce; never rising; 0 at the last check; and between the
+    lanes that bounced more than ``i + 1`` times and those that bounced
+    more than ``i`` times after bounce ``i``. Nothing is counted with
+    recording off."""
+    from raytracingpbr_tpu_torch.utils import profiling
+    cfg = tcornell.full_config().replace(resolution=(12, 12),
+                                         max_raymarch=128, max_raytrace=40)
+    scene, env, cam = (tcornell.full_scene(CPU), tcornell.sky(CPU),
+                       tcornell.full_camera(CPU))
+    pid, rays = _cornell_rays(cfg, cam, 4)
+    plain, real = [], tinteg.any_alive
+
+    def spy(alive, live=None):
+        plain.append(int(alive.to(torch.int64).sum()))
+        return real(alive, live)
+
+    monkeypatch.setattr(tinteg, "any_alive", spy)
+    tinteg.LIVE_LANES.clear()
+    off = tinteg.megakernel_trace(scene, env, rays, pid, 4, cfg)
+    assert tinteg.LIVE_LANES == []
+    plain.clear()
+    with profiling.recording():
+        on = tinteg.megakernel_trace(scene, env, rays, pid, 4, cfg)
+    assert len(tinteg.LIVE_LANES) == 1
+    live = tinteg.LIVE_LANES[0]
+    assert live == plain and len(live) > 3
+    assert all(a >= b for a, b in zip(live, live[1:])) and live[-1] == 0
+    for i, n in enumerate(live):
+        assert int((on.bounces >= i + 2).sum()) <= n
+        assert n <= int((on.bounces >= i + 1).sum())
+    assert torch.equal(on.color, off.color)
+    assert torch.equal(on.bounces, off.bounces)
+    tinteg.LIVE_LANES.clear()
+    assert tinteg.LIVE_LANES == []
+
+
+def test_recording_changes_no_bit_and_no_launch():
+    """With the spans recorded and not, ``render_image`` gives the same
+    image bit for bit, and dispatches the same operators in the same
+    order, the same syncs among them, but for each exit check's one
+    reduction: ``any`` while off, ``sum`` (the count) while on. (On the
+    card the ``sum`` of a mask is two launches, a cast to int64 and the
+    reduction.)"""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from raytracingpbr_tpu_torch.utils import profiling
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    cfg = tcornell.full_config().replace(resolution=(10, 10),
+                                         max_raymarch=128, max_raytrace=30)
+    args = (tcornell.full_scene(CPU), tcornell.sky(CPU),
+            tcornell.full_camera(CPU), cfg)
+    tinteg.LIVE_LANES.clear()
+    with Ops() as off_ops:
+        off = tinteg.render_image(*args, spp=2, tonemapped=False)
+    assert tinteg.LIVE_LANES == []
+    with profiling.recording(), Ops() as on_ops:
+        on = tinteg.render_image(*args, spp=2, tonemapped=False)
+    assert torch.equal(on, off)
+    checks = sum(len(v) for v in tinteg.LIVE_LANES)
+    assert len(tinteg.LIVE_LANES) == 2 and checks > 4
+    assert len(on_ops.names) == len(off_ops.names)
+    differ = [(a, b) for a, b in zip(off_ops.names, on_ops.names) if a != b]
+    assert differ == [("any", "sum")] * checks
+    syncs = lambda ops: ops.names.count("_local_scalar_dense")
+    assert syncs(on_ops) == syncs(off_ops) >= checks
+    tinteg.LIVE_LANES.clear()

@@ -29,6 +29,13 @@ with the material gradient kernel's calls a unit
 (``kernels/material_grad_kernel.LAUNCHES``), and the march kernel's
 launches a unit by variant (``kernels/march_kernel.LAUNCHES``) beside the
 march kernels the trace holds a unit (``benchmark/trace.is_march``).
+An offline cell's recorded sub-window also lists, a pass, each bounce's
+live lanes from the program's counter (``ops/integrator.LIVE_LANES``, the
+lanes alive after the bounce) beside the device milliseconds of the
+kernels credited inside that bounce's span; a pass is a function of its
+sample index, so the same units run again need no state put back. There
+the recorded half's kernels differ from the other's at each exit check by
+design: the count's cast and sum in place of ``any``'s one reduction.
 
 One JSON line a sub-window and a last summary line on stdout; the whole
 record in ``--out``/``<workload>.json``. Prints the card's name and power
@@ -55,13 +62,39 @@ from benchmark.metrics import layers
 from raytracingpbr_tpu_torch.kernels import (march_kernel,
                                              material_grad_kernel,
                                              normal_kernel)
+from raytracingpbr_tpu_torch.ops import integrator as integ
 from raytracingpbr_tpu_torch.ops import scene as scenelib
 from raytracingpbr_tpu_torch.utils import profiling
 
 READERS = {"frames": ("launches.frame", "other_device_ms.frame",
                       "march_ms.frame", "device_idle_pct.frame"),
            "grad": ("launches.step", "march_ms.step", "device_idle_pct.step",
-                    "backward_ms.step")}
+                    "backward_ms.step"),
+           "offline": ("launches.pass", "march_ms.pass",
+                       "device_idle_pct.pass")}
+
+
+def bounce_table(kernels, calls, sp: layers.Spans, live: list) -> list:
+    """A pass's bounces, one list a ``megakernel_trace`` call of ``live``
+    (``integ.LIVE_LANES``, one count a bounce): ``[bounce, live lanes
+    after it, device ms of the kernels credited inside its span]``. The
+    ``bounce`` rows are taken in order of start and split by the calls'
+    bounce counts."""
+    rows = sorted((i for i, r in enumerate(sp.rows) if r[0] == "bounce"),
+                  key=lambda i: sp.rows[i][3])
+    ms = collections.defaultdict(float)
+    for k, i in zip(kernels, layers.credit(kernels, calls, sp)):
+        while i is not None and i >= 0 and sp.rows[i][0] != "bounce":
+            i = sp.rows[i][1]
+        if i is not None and i >= 0:
+            ms[i] += k[2] * 1e-3
+    out, at = [], 0
+    for counts in live:
+        ix = rows[at:at + len(counts)]
+        at += len(counts)
+        out.append([[j, n, ms[i]] for j, (n, i) in enumerate(zip(counts,
+                                                                 ix))])
+    return out
 
 
 @contextlib.contextmanager
@@ -111,6 +144,7 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
     materials = dict(scenelib.MATERIAL_ROUTES)
     grads = material_grad_kernel.LAUNCHES["material_grad"]
     marches = dict(march_kernel.LAUNCHES)
+    integ.LIVE_LANES.clear()
     rec = profiling.recording() if record else contextlib.nullcontext([])
     with rec as rows, profiled(captured):
         spans.on = True
@@ -175,6 +209,9 @@ def sub_window(kind, ctx, spans, units, n, record: bool,
         by = layers.device_ms(kernels, layers.credit(kernels, calls, sp), sp)
         got["layers"]["device_ms_by_layer"] = {
             str(k): v / n for k, v in sorted(by.items(), key=str)}
+        if ctx.cell.kind == "offline":
+            got["layers"]["bounces_a_pass"] = bounce_table(
+                kernels, calls, sp, integ.LIVE_LANES)
     return got
 
 
